@@ -1,0 +1,191 @@
+"""Experiment configuration: the reference's YAML schema, key for key.
+
+Counterpart of :mod:`ssds_tpu.config`. The default tree is the same, so
+every ``experiments/cfgs/*.yml`` merges into it unchanged; keys only the
+JAX package reads (``TPU.*``, ``MODEL.S2D_STEM``, ``MODEL.QUANT``) are kept
+so that a config file is valid for both packages. ``yaml`` is imported
+inside :func:`cfg_from_file` / :func:`cfg_from_list` only: a machine without
+PyYAML can still build the default config and serve.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Any
+
+
+class AttrDict(dict):
+    """dict with attribute access (the reference's EasyDict role)."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    def __deepcopy__(self, memo):
+        return AttrDict({k: copy.deepcopy(v, memo) for k, v in self.items()})
+
+
+def _ad(**kwargs) -> AttrDict:
+    return AttrDict(kwargs)
+
+
+def default_config() -> AttrDict:
+    """The full default tree — equal to ``ssds_tpu.config.default_config()``."""
+    return _ad(
+        MODEL=_ad(
+            SSDS="ssd",
+            NETS="vgg16",
+            IMAGE_SIZE=[300, 300],
+            NUM_CLASSES=21,
+            FEATURE_LAYER=[[22, 34, "S", "S", "", ""], [512, 1024, 512, 256, 256, 256]],
+            STEPS=[],
+            S2D_STEM=-1,  # JAX-only: the port has no space-to-depth stem
+            S2D_STAGES=-1,  # JAX-only
+            SIZES=[0.2, 0.95],
+            ASPECT_RATIOS=[[2], [2, 3], [2, 3], [2, 3], [2], [2]],
+            CLIP=True,
+            HALF_PRECISION=True,  # bf16 forward; softmax/decode/detect in f32
+            QUANT="",  # JAX-only: int8 serving is not ported yet
+            ANCHORS=[],
+        ),
+        TRAIN=_ad(
+            MAX_EPOCHS=300,
+            CHECKPOINTS_EPOCHS=5,
+            BATCH_SIZE=32,
+            TRAINABLE_SCOPE="base,norm,extras,transforms,pyramids,loc,conf",
+            RESUME_SCOPE="",
+            OPTIMIZER=_ad(
+                OPTIMIZER="sgd",
+                LEARNING_RATE=0.001,
+                DIFFERENTIAL_LEARNING_RATE=[],
+                MOMENTUM=0.9,
+                WEIGHT_DECAY=0.0005,
+                EPS=1e-8,
+                CLIP_GRADIENT=0.0,
+            ),
+            LR_SCHEDULER=_ad(
+                SCHEDULER="step",
+                STEPS=[1],
+                GAMMA=0.98,
+                LR_MIN=0.0,
+                WARM_UP_EPOCHS=0,
+            ),
+        ),
+        TEST=_ad(
+            BATCH_SIZE=64,
+            TEST_SCOPE=[0, 300],
+        ),
+        POST_PROCESS=_ad(
+            NUM_CLASSES=21,
+            BACKGROUND_LABEL=0,
+            SCORE_THRESHOLD=0.01,
+            IOU_THRESHOLD=0.6,
+            MAX_DETECTIONS=100,
+            TOP_K=200,
+            VARIANCE=[0.1, 0.2],
+            # class-agnostic pre-NMS prune at batch >= 4 (0 = off); see
+            # ops/postprocess.PostProcessConfig.pre_nms_top_n
+            PRE_NMS_TOP_N=1024,
+        ),
+        DATASET=_ad(
+            DATASET="voc",
+            DATASET_DIR="data/VOCdevkit",
+            TRAIN_SETS=[["2007", "trainval"], ["2012", "trainval"]],
+            TEST_SETS=[["2007", "test"]],
+            PROB=0.6,
+            PIXEL_MEANS=(104, 117, 123),  # BGR order, as the reference
+            NUM_WORKERS=8,
+            DEVICE_ID=[0],
+            MAX_GT=64,
+            DEVICE_AUG=False,
+        ),
+        TPU=_ad(  # JAX-only subtree, kept so config files stay valid
+            MESH=_ad(DATA=-1, SPATIAL=1),
+            COMPUTE_DTYPE="bfloat16",
+            DONATE=True,
+            DEBUG_NANS=False,
+            REMAT=False,
+        ),
+        EXP_DIR="./experiments/models/ssd_vgg16_voc",
+        LOG_DIR="./experiments/models/ssd_vgg16_voc/logs",
+        RESUME_CHECKPOINT="",
+        CHECKPOINTS_PREFIX="ssd_vgg16_voc",
+        PHASE=["train"],
+    )
+
+
+#: process-global singleton, for reference-API parity
+cfg = default_config()
+
+
+def _merge_a_into_b(a: dict, b: AttrDict, path: str = "") -> None:
+    """Recursively merge yaml dict ``a`` into default tree ``b``, type-checked
+    (unknown keys and type mismatches raise, as in the reference)."""
+    for k, v in a.items():
+        full = f"{path}.{k}" if path else k
+        if k not in b:
+            raise KeyError(f"{full} is not a valid config key")
+        old = b[k]
+        if isinstance(old, AttrDict):
+            if not isinstance(v, dict):
+                raise TypeError(f"config key {full}: expected mapping, got {type(v).__name__}")
+            _merge_a_into_b(v, old, full)
+            continue
+        if old is not None and v is not None:
+            old_t, new_t = type(old), type(v)
+            if old_t is not new_t:
+                if isinstance(old, (tuple, list)) and isinstance(v, (tuple, list)):
+                    v = old_t(v)
+                elif isinstance(old, bool) and isinstance(v, int):
+                    v = bool(v)  # yaml `CLIP: 1` for a bool key
+                elif isinstance(old, float) and isinstance(v, int):
+                    v = float(v)
+                else:
+                    raise TypeError(
+                        f"config key {full}: type mismatch ({old_t.__name__} vs {new_t.__name__})"
+                    )
+        b[k] = v
+
+
+def cfg_from_file(filename: str, base: AttrDict | None = None) -> AttrDict:
+    """Load a YAML experiment file merged over the defaults; returns a NEW
+    tree and refreshes the module-global ``cfg`` in place."""
+    import yaml
+
+    with open(filename) as f:
+        yaml_cfg = yaml.safe_load(f) or {}
+    if not isinstance(yaml_cfg, dict):
+        raise TypeError(f"{filename}: expected a YAML mapping, got {type(yaml_cfg).__name__}")
+    out = copy.deepcopy(base) if base is not None else default_config()
+    _merge_a_into_b(yaml_cfg, out)
+    cfg.clear()
+    cfg.update(copy.deepcopy(out))
+    return out
+
+
+def cfg_from_list(cfg_list, base: AttrDict | None = None) -> AttrDict:
+    """Set config keys from a flat ``['KEY.SUBKEY', value, ...]`` list."""
+    if len(cfg_list) % 2:
+        raise ValueError("cfg_from_list needs KEY VALUE pairs")
+    out = copy.deepcopy(base) if base is not None else copy.deepcopy(cfg)
+    for key, value in zip(cfg_list[0::2], cfg_list[1::2]):
+        parts = key.split(".")
+        node = out
+        for p in parts[:-1]:
+            node = node[p]
+        leaf = parts[-1]
+        if leaf not in node:
+            raise KeyError(f"{key} is not a valid config key")
+        if isinstance(value, str) and not isinstance(node[leaf], str):
+            import yaml
+
+            value = yaml.safe_load(value)
+        _merge_a_into_b({leaf: value}, node, ".".join(parts[:-1]))
+    cfg.clear()
+    cfg.update(copy.deepcopy(out))
+    return out

@@ -1,0 +1,159 @@
+"""Inference-only ObjectDetector (counterpart of :mod:`ssds_tpu.detector`).
+
+Reference ``lib/ssds.py``: ``ObjectDetector.__init__`` = create_model +
+load RESUME_CHECKPOINT + PriorBox + Detect; ``predict(img, threshold,
+check_time)`` = preprocess one image -> forward -> Detect -> rescale boxes to
+the original image -> score filter, with optional per-stage timing.
+
+Everything after the host-side resize runs on ``device``: mean
+subtraction, the conv forward (bf16 when ``MODEL.HALF_PRECISION``), then
+softmax, decode and detect in float32, with the batched NMS as the CUDA
+kernel on a GPU. The host uploads one ``[B, H, W, 3]`` uint8 batch and
+downloads one ``[B, C, max_det, 5]`` float32 block.
+
+``cv2`` is imported only to resize an image that is not already at the
+model's input size.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
+from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect
+
+
+def _resize(img: np.ndarray, hw) -> np.ndarray:
+    """HWC uint8 to the model size (bilinear, as the JAX detector's cv2 call)."""
+    if img.shape[:2] == tuple(hw):
+        return img
+    import cv2
+
+    return cv2.resize(img, (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR)
+
+
+class ObjectDetector:
+    """Serve one model config on one device.
+
+    Args:
+      cfg: the full config tree (``MODEL``, ``POST_PROCESS``, ``DATASET``,
+        ``RESUME_CHECKPOINT``).
+      device: where the model runs. ``"cuda"`` raises when no GPU exists.
+      seed: seeds the random init used when ``RESUME_CHECKPOINT`` is empty.
+
+    ``RESUME_CHECKPOINT`` names a ``.pth`` state dict in the port's
+    (reference torch) layout, e.g. one written from JAX parameters by
+    :func:`ssds_tpu_torch.weights.state_dict_from_jax`.
+    """
+
+    def __init__(self, cfg, device="cuda", seed: int = 0):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("ObjectDetector: device 'cuda' asked for, but no GPU is available")
+        model_cfg = cfg.MODEL
+        model, self.feature_maps = create_model(model_cfg)
+        self.img_hw = (int(model_cfg.IMAGE_SIZE[0]), int(model_cfg.IMAGE_SIZE[1]))
+        self.dtype = torch.bfloat16 if bool(model_cfg.HALF_PRECISION) else torch.float32
+        self.model = init_model(model, seed=seed, device="cpu")
+        if cfg.RESUME_CHECKPOINT:
+            sd = torch.load(cfg.RESUME_CHECKPOINT, map_location="cpu", weights_only=True)
+            sd = sd.get("state_dict", sd)
+            sd = {k[7:] if k.startswith("module.") else k: v for k, v in sd.items()}
+            self.model.load_state_dict(sd, strict=True)
+        self.model.to(self.device)
+        # flax casts conv params to the compute dtype per call; cast once here.
+        # L2Norm keeps its float32 scale (it computes in float32).
+        for m in self.model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.to(self.dtype)
+        self.priors = torch.from_numpy(create_priors(model_cfg, self.feature_maps)).to(self.device)
+        self.means = torch.tensor(cfg.DATASET.PIXEL_MEANS, dtype=torch.float32,
+                                  device=self.device)
+        self.post = PostProcessConfig(
+            num_classes=int(cfg.POST_PROCESS.NUM_CLASSES),
+            background_label=int(cfg.POST_PROCESS.BACKGROUND_LABEL),
+            score_threshold=float(cfg.POST_PROCESS.SCORE_THRESHOLD),
+            iou_threshold=float(cfg.POST_PROCESS.IOU_THRESHOLD),
+            max_detections=int(cfg.POST_PROCESS.MAX_DETECTIONS),
+            top_k=int(cfg.POST_PROCESS.TOP_K),
+            variance=tuple(cfg.POST_PROCESS.VARIANCE),
+            pre_nms_top_n=int(cfg.POST_PROCESS.get("PRE_NMS_TOP_N", 0)),
+        )
+
+    @torch.no_grad()
+    def forward(self, img_u8: torch.Tensor):
+        """``[B, H, W, 3]`` uint8 BGR at model size, on ``device`` ->
+        eval-phase ``(loc [B,K,4], conf [B,K,C])`` float32."""
+        x = (img_u8.float() - self.means).permute(0, 3, 1, 2).contiguous()
+        return self.model(x.to(self.dtype), phase="eval")
+
+    @torch.no_grad()
+    def detect_rows(self, batch_u8: np.ndarray) -> torch.Tensor:
+        """``[B, H, W, 3]`` uint8 at model size -> dense ``[B, C, max_det, 5]``
+        detections on ``device`` (not synchronised)."""
+        x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
+        loc, conf = self.forward(x)
+        return detect(loc, conf, self.priors, self.post)
+
+    def predict_batch(self, imgs, threshold: float = 0.6):
+        """Batched :meth:`predict`: images of any sizes are resized on the
+        host, stacked and served as one batch (batch >= 4 takes the pruned
+        detect path, see ``PostProcessConfig.pre_nms_top_n``); each image's
+        detections are rescaled to its own original size.
+
+        Returns a list of ``(boxes_px [N,4], labels [N], scores [N])``, one
+        per image, rows in descending score.
+        """
+        x = np.stack([_resize(img, self.img_hw) for img in imgs]).astype(np.uint8)
+        dets = self.detect_rows(x).cpu().numpy()
+        results = []
+        for img, rows in zip(imgs, dets):
+            orig_h, orig_w = img.shape[:2]
+            scale = np.array([orig_w, orig_h, orig_w, orig_h], np.float32)
+            cls, slot = np.nonzero(rows[..., 0] > threshold)
+            picked = rows[cls, slot]
+            order = np.argsort(-picked[:, 0], kind="stable")
+            results.append((
+                picked[order, 1:5] * scale,
+                (cls[order] - 1).astype(np.int32),  # drop the background offset
+                picked[order, 0].astype(np.float32),
+            ))
+        return results
+
+    def predict(self, img: np.ndarray, threshold: float = 0.6, check_time: bool = False):
+        """img: HWC BGR uint8 (any size). Returns ``(boxes_px [N,4], labels
+        [N], scores [N])`` above threshold, class-major; with check_time also
+        a dict of per-stage seconds (preprocess / forward_detect /
+        postfilter / total), the device stage closed by a synchronise."""
+        t_all = time.perf_counter()
+        orig_h, orig_w = img.shape[:2]
+        t0 = time.perf_counter()
+        x = _resize(img, self.img_hw)[None].astype(np.uint8)
+        t_pre = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dets = self.detect_rows(x)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dets = dets[0].cpu().numpy()
+        t_fwd = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        scale = np.array([orig_w, orig_h, orig_w, orig_h], np.float32)
+        cls, slot = np.nonzero(dets[..., 0] > threshold)  # class-major, slot order
+        picked = dets[cls, slot]
+        boxes = (picked[:, 1:5] * scale).reshape(-1, 4)
+        labels = (cls - 1).astype(np.int32)
+        scores = picked[:, 0].astype(np.float32)
+        t_post = time.perf_counter() - t0
+        total = time.perf_counter() - t_all
+        if check_time:
+            return (boxes, labels, scores), {
+                "preprocess": t_pre, "forward_detect": t_fwd,
+                "postfilter": t_post, "total": total,
+            }
+        return boxes, labels, scores

@@ -1,0 +1,14 @@
+"""Detector-head zoo.
+
+Every builder has the wiring contract
+``build_X(base, feature_layer, mbox, num_classes) -> nn.Module``, where
+``base`` is a backbone layer-spec list, ``feature_layer`` is
+``cfg.MODEL.FEATURE_LAYER`` and ``mbox`` the anchors per cell of each map.
+Only ``ssd`` is ported so far.
+"""
+
+from ssds_tpu_torch.models.heads.ssd import build_ssd
+
+ssds_map = {
+    "ssd": build_ssd,
+}

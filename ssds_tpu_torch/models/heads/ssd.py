@@ -1,0 +1,59 @@
+"""The classic SSD head (counterpart of :mod:`ssds_tpu.models.heads.ssd`).
+
+Reference ``lib/modeling/ssds/ssd.py``: run the backbone collecting sources
+at the FEATURE_LAYER indices (L2Norm, scale 20, on the first source), chain
+the extra blocks off the backbone tail (each block's output is a source),
+then per-source 3x3 loc/conf convs. Parameter names are the reference's:
+``base.{i}``, ``norm``, ``extras.{k}``, ``loc.{k}``, ``conf.{k}``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from ssds_tpu_torch.models.heads.common import (
+    conv_extra_spec, finalize, multibox, multibox_layers, run_layers, split_feature_layer)
+from ssds_tpu_torch.models.layers import L2Norm, LayerSpec, build_layers
+
+
+class SSD(nn.Module):
+    def __init__(self, base: Sequence[LayerSpec], extras: Sequence[Tuple[LayerSpec, ...]],
+                 taps: Sequence[int], num_anchors: Sequence[int], num_classes: int,
+                 in_channels: int = 3):
+        super().__init__()
+        self.taps = tuple(taps)
+        self.num_classes = num_classes
+        self.base, widths = build_layers(base, in_channels)
+        source_channels = [widths[t] for t in self.taps]
+        self.norm = L2Norm(source_channels[0])
+        flat = [spec for block in extras for spec in block]
+        self.extras, extra_widths = build_layers(flat, widths[-1])
+        self.extra_blocks = tuple(len(block) for block in extras)
+        ends = [sum(self.extra_blocks[:i + 1]) - 1 for i in range(len(self.extra_blocks))]
+        source_channels += [extra_widths[e] for e in ends]
+        self.loc, self.conf = multibox_layers(source_channels, num_anchors, num_classes)
+
+    def forward(self, x: torch.Tensor, phase: str = "train"):
+        """``x``: ``[B, 3, H, W]`` mean-subtracted image (NCHW)."""
+        sources, x = run_layers(self.base, self.taps, x)
+        sources[0] = self.norm(sources[0])
+        start = 0
+        for n in self.extra_blocks:
+            for layer in self.extras[start:start + n]:
+                x = layer(x)
+            start += n
+            sources.append(x)
+        if phase == "feature":
+            return sources
+        loc, conf = multibox(sources, self.loc, self.conf, self.num_classes)
+        return finalize(phase, loc, conf)
+
+
+def build_ssd(base, feature_layer, mbox, num_classes) -> SSD:
+    taps, extra_specs = split_feature_layer(feature_layer)
+    extras = [conv_extra_spec(kind, ch) for kind, ch in extra_specs]
+    return SSD(base=base, extras=extras, taps=taps, num_anchors=mbox,
+               num_classes=num_classes)

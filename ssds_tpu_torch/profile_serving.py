@@ -1,0 +1,116 @@
+"""Where the serving time goes on the card: ``python -m ssds_tpu_torch.profile_serving``.
+
+For each batch size (default 1 and 32) it serves seeded random uint8 images
+through :class:`~ssds_tpu_torch.detector.ObjectDetector` on the default
+SSD300-VGG16 config and reports:
+
+- stage times (CUDA events, mean of ``--iters`` after warm-up): host-to-device
+  upload, the conv forward (mean subtraction to softmax), ``detect``, the
+  device-to-host copy, and the whole ``predict_batch`` on the host clock;
+- the device's busy share over a ``torch.profiler`` window of whole
+  ``predict_batch`` calls (summed kernel time over wall time; kernels may
+  overlap, so it is an upper bound) and the top kernels by device time.
+  Only the profiler's device rows are summed: an operator's row repeats
+  the time of the kernels it launched.
+
+Needs a GPU; ``--out`` also writes the full tables as JSON.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+
+def _events_ms(fn, iters):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_batch(det, batch, iters, seed):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ssds_tpu_torch.ops.postprocess import detect
+
+    imgs = np.random.default_rng(seed).integers(0, 256, (batch, *det.img_hw, 3), dtype=np.uint8)
+    x = torch.from_numpy(imgs).to(det.device)
+    with torch.no_grad():
+        for _ in range(3):
+            det.predict_batch(list(imgs), threshold=0.01)
+        loc, conf = det.forward(x)
+        rows = detect(loc, conf, det.priors, det.post)
+        torch.cuda.synchronize()
+        stages = {
+            "upload_ms": _events_ms(lambda: torch.from_numpy(imgs).to(det.device), iters),
+            "forward_ms": _events_ms(lambda: det.forward(x), iters),
+            "detect_ms": _events_ms(lambda: detect(loc, conf, det.priors, det.post), iters),
+            "download_ms": _events_ms(lambda: rows.cpu(), iters),
+        }
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        det.predict_batch(list(imgs), threshold=0.01)
+    torch.cuda.synchronize()
+    stages["predict_batch_ms"] = (time.perf_counter() - t0) / iters * 1e3
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            det.predict_batch(list(imgs), threshold=0.01)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.device_time_total, reverse=True)
+    busy_us = sum(e.device_time_total for e in kernels)
+    top = [{"name": e.key[:100], "calls": e.count,
+            "device_ms": e.device_time_total / 1e3 / iters} for e in kernels[:20]]
+    return {"batch": batch, "stages": stages, "profiled_iters": iters,
+            "device_busy_share_upper_bound": busy_us / wall_us,
+            "device_ms_per_call": busy_us / 1e3 / iters, "top_kernels": top}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batches", default="1,32")
+    parser.add_argument("--iters", type=int, default=20)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--out", default="", help="also write the full tables to this JSON file")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving: needs a GPU (torch.cuda.is_available() is False)")
+
+    from ssds_tpu_torch.config import default_config
+    from ssds_tpu_torch.detector import ObjectDetector
+
+    det = ObjectDetector(default_config(), device="cuda", seed=args.seed)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    results = []
+    for b in (int(v) for v in args.batches.split(",")):
+        r = profile_batch(det, b, args.iters, args.seed)
+        results.append(r)
+        s = r["stages"]
+        print(f"batch {b} ({card}): " + ", ".join(f"{k} {v:.3f}" for k, v in s.items())
+              + f"; device busy <= {r['device_busy_share_upper_bound']:.3f}, "
+              f"{r['device_ms_per_call']:.3f} device-ms per predict_batch", flush=True)
+        for k in r["top_kernels"][:10]:
+            print(f"  {k['device_ms']:8.3f} ms  x{k['calls'] // args.iters:<4} {k['name']}")
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card, "results": results}, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()
