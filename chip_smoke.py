@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving path and conv-prototype path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -17,7 +17,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    against the same ``loc`` / ``conf`` through the plain NMS, and a float32
    forward on the card (TF32 off) against the CPU forward;
 5. times: kernel and plain NMS at the serving shapes (CUDA events), batch-1
-   ``predict`` latency and batch-32 ``predict_batch`` throughput.
+   ``predict`` latency and batch-32 ``predict_batch`` throughput;
+6. the conv kernel (``conv3x3_rows``, every output tile of the sweep, and
+   ``vconv3``) against its plain version on the card and on the CPU at small
+   shapes with partial tiles in H, W and Cout and with Cin != Cout: within one
+   bf16 ulp (rtol 2^-7, atol 1e-4);
+7. the conv-prototype path, with the conv and stencil kernels' launch counts
+   reset before and read after: ``ssds_tpu_torch.tools.conv_bench`` at
+   ``[32, 300, 300, 64]`` (every tile held against the float32 plain version,
+   then timed against cuDNN bf16 and the plain version in alternating turns)
+   and ``ssds_tpu_torch.tools.conv_probes`` (the 17 stencil probes
+   bit-identical to the plain version on the card and the CPU, the 2 dot
+   probes within the conv tolerance, each timed against its plain version).
 
 The line before the last is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -28,7 +39,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from unittest import mock
@@ -48,14 +58,14 @@ SSD300_PRIORS = 8732
 F32_RTOL, F32_ATOL = 1e-4, 1e-4
 
 
+# (B, H, W, Cin, Cout) for phase 6: partial tiles in H and W, Cin != Cout with
+# a partial 64-channel output slice, and two output slices
+CONV_SHAPES = [(2, 37, 45, 64, 64), (1, 19, 70, 32, 48), (1, 20, 40, 64, 128)]
+VCONV_SHAPES = [(2, 39, 45, 64, 64), (1, 12, 20, 32, 48)]  # (B, H+2, W, C, Cout)
+
+
 def log(*args):
     print(*args, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def nms_case(rng, m, n, kind):
@@ -104,18 +114,43 @@ def check_nms_kernel(nms_mask, nms_mask_torch, seed):
     return max_err
 
 
-def time_cuda(fn, iters):
-    """Mean milliseconds of ``fn()`` over ``iters`` launches (CUDA events)."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+def check_conv_kernel(seed):
+    """Phase 6: conv kernel within one bf16 ulp of the plain version on CUDA and CPU."""
+    from ssds_tpu_torch.ops.conv import ATOL, RTOL, conv3x3_rows_torch, vconv3_torch
+    from ssds_tpu_torch.ops.cuda.conv import TILES, conv3x3_rows, vconv3
+
+    def bf16(rng, shape, scale=1.0):
+        return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to(torch.bfloat16)
+
+    def within(got, plain, what):
+        err = max((got.float() - p.float()).abs().max().item() for p in plain)
+        for p in plain:
+            torch.testing.assert_close(got.float(), p.float(), rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{what}: {m}")
+        return err
+
+    max_err, cases = 0.0, 0
+    for b, h, w, cin, cout in CONV_SHAPES:
+        rng = np.random.default_rng([seed, h, w, cin, cout])
+        x, wt = bf16(rng, (b, h, w, cin)), bf16(rng, (3, 3, cin, cout), 0.05)
+        xc, wc = x.to(DEVICE), wt.to(DEVICE)
+        plain = (conv3x3_rows_torch(xc, wc).cpu(), conv3x3_rows_torch(x, wt))
+        for tile in TILES:
+            got = conv3x3_rows(xc, wc, tile).cpu()
+            max_err = max(max_err, within(got, plain, f"conv3x3_rows {[b, h, w, cin, cout]} "
+                                                      f"tile {tile}"))
+            cases += 1
+    for b, h2, w, c, cout in VCONV_SHAPES:
+        rng = np.random.default_rng([seed, h2, w, c, cout])
+        xp, wd0 = bf16(rng, (b, h2, w, c)), bf16(rng, (3 * c, cout), 0.05)
+        got = vconv3(xp.to(DEVICE), wd0.to(DEVICE)).cpu()
+        plain = (vconv3_torch(xp.to(DEVICE), wd0.to(DEVICE)).cpu(), vconv3_torch(xp, wd0))
+        max_err = max(max_err, within(got, plain, f"vconv3 {[b, h2, w, c, cout]}"))
+        cases += 1
+    log(f"conv kernel: {cases} cases within one bf16 ulp (rtol 2^-7, atol 1e-4) of the plain "
+        f"version on CUDA and CPU, max |d| {max_err:.3e} (conv3x3_rows {CONV_SHAPES} x tiles "
+        f"{list(TILES)}; vconv3 {VCONV_SHAPES})")
+    return max_err
 
 
 def main(argv=None):
@@ -129,6 +164,8 @@ def main(argv=None):
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this script needs a GPU")
+    from ssds_tpu_torch.tools import card_line, time_cuda
+
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     log(f"device: {kind} x{count}; nvidia-smi name, power.limit: {card}")
@@ -257,16 +294,57 @@ def main(argv=None):
     report.update(predict_b1_p50_ms=p50, predict_b1_lat_ms=[t * 1e3 for t in lat],
                   predict_batch32_img_s=ips, nms_launches_main_path=launches,
                   nms_max_abs_err=nms_err)
+
+    # -- 6. the conv kernel against its plain version ------------------------
+    conv_err = check_conv_kernel(args.seed)
+
+    # -- 7. the conv-prototype path ------------------------------------------
+    from ssds_tpu_torch.ops.cuda import conv as cuda_conv
+    from ssds_tpu_torch.ops.cuda.stencil import row_stencil
+    from ssds_tpu_torch.ops.stencil import PROBES
+    from ssds_tpu_torch.tools import conv_bench, conv_probes
+
+    cuda_conv.conv3x3_rows.launches = cuda_conv.vconv3.launches = row_stencil.launches = 0
+    bench = conv_bench.run(batch=32, seed=args.seed, log=log)
+    probes = conv_probes.run(seed=args.seed, log=log)
+    torch.cuda.synchronize()
+    conv_launches = {"conv3x3_rows": cuda_conv.conv3x3_rows.launches,
+                     "vconv3": cuda_conv.vconv3.launches}
+    stencil_launches = row_stencil.launches
+    log(f"conv-prototype path: conv kernel launches {conv_launches}, stencil kernel launches "
+        f"{stencil_launches}")
+    if min(conv_launches.values()) <= 0 or stencil_launches <= 0:
+        raise AssertionError("the conv-prototype path never launched one of its kernels")
+    report.update(conv_kernel_max_abs_err=conv_err, conv_bench=bench, conv_probes=probes,
+                  conv_launches_main_path=conv_launches,
+                  stencil_launches_main_path=stencil_launches)
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
 
     kern_ms, plain_ms = nms_times[(672, 200)]
+    default_tile = conv_bench.tile_name(cuda_conv.TILES[0])
+    halo = probes["probes"]["elem_halo"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55", "launches": launches,
         "max_abs_err": nms_err, "ms": kern_ms, "plain_ms": plain_ms, "shape": [672, 200],
+    }, {
+        "name": "conv3x3_rows", "route": "cuda", "source": "ssds_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "tools/pallas_conv_bench.py:50; tools/pallas_conv_bisect.py:71; "
+                    "tools/pallas_conv_bisect.py:80",
+        "launches": sum(conv_launches.values()), "launches_by_wrapper": conv_launches,
+        "max_abs_err": max([conv_err, *(t["max_abs_err"] for t in bench["tiles"].values()),
+                            probes["probes"]["dot"]["max_abs_diff"],
+                            probes["probes"]["dot3d"]["max_abs_diff"]]),
+        "ms": min(bench["tiles"][default_tile]["ms"]), "plain_ms": min(bench["plain_ms"]),
+        "cudnn_ms": min(bench["cudnn_ms"]), "tile": default_tile, "shape": bench["shape"],
+    }, {
+        "name": "row_stencil", "route": "cuda", "source": "ssds_tpu_torch/csrc/stencil.cu",
+        "replaces": "; ".join(p.source for p in PROBES.values()), "launches": stencil_launches,
+        "max_abs_err": max(probes["probes"][n]["max_abs_diff"] for n in PROBES),
+        "ms": halo["kernel_ms"], "plain_ms": halo["plain_ms"], "shape": halo["shape"],
     }]}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

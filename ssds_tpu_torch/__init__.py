@@ -8,7 +8,10 @@ never jax or flax, directly or through ``ssds_tpu``.
 Ported so far: the SSD300-VGG16 serving path, from uint8 images through
 the VGG16 base, the SSD extras and heads, decode and the batched greedy
 NMS (a hand-written CUDA kernel, :mod:`ssds_tpu_torch.ops.cuda.nms`) to the
-dense ``[B, C, max_det, 5]`` detections of :class:`ObjectDetector`.
+dense ``[B, C, max_det, 5]`` detections of :class:`ObjectDetector`; and
+the conv-prototype tools (:mod:`ssds_tpu_torch.tools`), whose 3x3 stem conv
+and probe stencils are hand-written CUDA kernels
+(:mod:`ssds_tpu_torch.ops.cuda.conv`, :mod:`ssds_tpu_torch.ops.cuda.stencil`).
 """
 
 __version__ = "0.1.0"

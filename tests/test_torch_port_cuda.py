@@ -7,7 +7,10 @@ without JAX; there, skip ``tests/conftest.py`` (which imports jax):
 
 Keep masks are compared EXACTLY with the plain version: the kernel computes
 each IoU with the same float32 operations in the same order, built with
-``-fmad=false``, so there is no tolerance to state.
+``-fmad=false``, so there is no tolerance to state. So are the stencil
+kernel's sums: the same bf16 adds in the same order. The conv kernel and its
+plain version sum float32 products in different orders and round once to
+bf16: within one bf16 ulp (``ssds_tpu_torch.ops.conv.RTOL, ATOL``).
 """
 
 from unittest import mock
@@ -18,8 +21,12 @@ import torch
 
 from ssds_tpu_torch.config import default_config
 from ssds_tpu_torch.ops import postprocess
+from ssds_tpu_torch.ops.conv import ATOL, RTOL, conv3x3_rows_torch, vconv3_torch
+from ssds_tpu_torch.ops.cuda import conv as cuda_conv
 from ssds_tpu_torch.ops.cuda import nms as cuda_nms
+from ssds_tpu_torch.ops.cuda import stencil as cuda_stencil
 from ssds_tpu_torch.ops.nms import NEG_INF, nms_mask_torch
+from ssds_tpu_torch.ops.stencil import PROBES, row_stencil_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -131,3 +138,122 @@ def test_kernel_bit_identical_over_seeds_and_thresholds(cuda, seed):
     thr = float(rng.choice([0.0, 0.3, 0.45, 0.5, 0.6, 0.99]))
     got = cuda_nms.nms_mask(boxes.to(cuda), scores.to(cuda), thr).cpu()
     assert torch.equal(got, nms_mask_torch(boxes, scores, thr))
+
+
+# (B, H, W, Cin, Cout): partial tiles in H and W, Cin != Cout, a partial and a
+# second 64-channel output slice
+CONV_SHAPES = [(2, 37, 45, 64, 64), (1, 19, 70, 32, 48), (3, 8, 33, 16, 16), (1, 20, 40, 64, 128)]
+
+
+def _bf16(rng, shape, scale=1.0):
+    return torch.from_numpy(rng.normal(0, scale, shape).astype(np.float32)).to(torch.bfloat16)
+
+
+def _within_ulp(got, want):
+    torch.testing.assert_close(got.float(), want.float(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("tile", cuda_conv.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
+def test_conv_kernel_matches_plain(cuda, shape, tile):
+    b, h, w, cin, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    x, wt = _bf16(rng, (b, h, w, cin)), _bf16(rng, (3, 3, cin, cout), 0.05)
+    before = cuda_conv.conv3x3_rows.launches
+    got = cuda_conv.conv3x3_rows(x.to(cuda), wt.to(cuda), tile)
+    torch.cuda.synchronize()
+    assert cuda_conv.conv3x3_rows.launches == before + 1
+    assert got.shape == (b, h, w, cout) and got.dtype == torch.bfloat16
+    _within_ulp(got.cpu(), conv3x3_rows_torch(x.to(cuda), wt.to(cuda)).cpu())
+    _within_ulp(got.cpu(), conv3x3_rows_torch(x, wt))
+
+
+def test_conv_kernel_matches_plain_at_the_stem_shape(cuda):
+    rng = np.random.default_rng(0)
+    x, wt = _bf16(rng, (32, 300, 300, 64)).to(cuda), _bf16(rng, (3, 3, 64, 64), 0.05).to(cuda)
+    _within_ulp(cuda_conv.conv3x3_rows(x, wt), conv3x3_rows_torch(x, wt))
+
+
+@pytest.mark.parametrize("shape", [(2, 39, 45, 64, 64), (1, 12, 20, 32, 48), (4, 302, 300, 64, 64)],
+                         ids=str)
+def test_vconv3_kernel_matches_plain(cuda, shape):
+    b, h2, w, c, cout = shape
+    rng = np.random.default_rng(sum(shape))
+    xp, wd0 = _bf16(rng, (b, h2, w, c)), _bf16(rng, (3 * c, cout), 0.05)
+    before = cuda_conv.vconv3.launches
+    got = cuda_conv.vconv3(xp.to(cuda), wd0.to(cuda))
+    torch.cuda.synchronize()
+    assert cuda_conv.vconv3.launches == before + 1
+    assert got.shape == (b, h2 - 2, w, cout)
+    _within_ulp(got.cpu(), vconv3_torch(xp.to(cuda), wd0.to(cuda)).cpu())
+    if b * h2 * w < 10000:
+        _within_ulp(got.cpu(), vconv3_torch(xp, wd0))
+
+
+def test_conv_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 8, 8, 64), dtype=torch.bfloat16, device=cuda)
+    wt = torch.zeros((3, 3, 64, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="Cin % 16"):
+        cuda_conv.conv3x3_rows(x[..., :8].contiguous(), wt[:, :, :8].contiguous())
+    with pytest.raises(ValueError, match="Cout % 8"):
+        cuda_conv.conv3x3_rows(x, wt[..., :12].contiguous())
+    with pytest.raises(TypeError):
+        cuda_conv.conv3x3_rows(x.float(), wt.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_conv.conv3x3_rows(x.transpose(1, 2), wt)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_conv.conv3x3_rows(torch.zeros((1, 8, 8, 128), dtype=torch.bfloat16, device=cuda),
+                               torch.zeros((3, 3, 128, 64), dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError):
+        cuda_conv.conv3x3_rows(x, wt.cpu())
+    with pytest.raises(ValueError, match="warps"):
+        cuda_conv.conv3x3_rows(x, wt, (17, 1))
+    with pytest.raises(ValueError):
+        cuda_conv.vconv3(x, wt.reshape(576, 64))
+
+
+@pytest.mark.parametrize("name", list(PROBES))
+def test_stencil_kernel_bit_identical_to_plain(cuda, name):
+    probe = PROBES[name]
+    x = _bf16(np.random.default_rng(0), probe.shape)
+    args = (probe.terms, probe.out_rows, probe.out_cols, probe.wmode)
+    before = cuda_stencil.row_stencil.launches
+    got = cuda_stencil.row_stencil(x.to(cuda), *args)
+    torch.cuda.synchronize()
+    assert cuda_stencil.row_stencil.launches == before + 1
+    got = got.cpu()
+    assert got.shape == (probe.shape[0], probe.out_rows, probe.out_cols, probe.shape[3])
+    assert torch.equal(got, row_stencil_torch(x.to(cuda), *args).cpu())
+    assert torch.equal(got, row_stencil_torch(x, *args))
+
+
+def test_stencil_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((1, 4, 6, 8), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="C % 8"):
+        cuda_stencil.row_stencil(x[..., :4].contiguous(), ((0, 0),), 4, 6)
+    with pytest.raises(TypeError):
+        cuda_stencil.row_stencil(x.float(), ((0, 0),), 4, 6)
+    with pytest.raises(ValueError, match="terms"):
+        cuda_stencil.row_stencil(x, ((0, 0),) * 9, 4, 6)
+    with pytest.raises(ValueError, match="rows"):
+        cuda_stencil.row_stencil(x, ((0, 0), (1, 0)), 4, 6)
+
+
+def test_cuda_tensors_never_take_the_plain_versions(cuda):
+    """With the plain versions made to raise, the wrappers still run on CUDA
+    tensors, and each launch moves its counter."""
+    rng = np.random.default_rng(5)
+    x, wt = _bf16(rng, (1, 10, 20, 16)).to(cuda), _bf16(rng, (3, 3, 16, 16), 0.05).to(cuda)
+    boom = mock.Mock(side_effect=AssertionError("plain version called on a CUDA tensor"))
+    counts = (cuda_conv.conv3x3_rows.launches, cuda_conv.vconv3.launches,
+              cuda_stencil.row_stencil.launches)
+    with mock.patch.object(cuda_conv, "conv3x3_rows_torch", boom), \
+            mock.patch.object(cuda_conv, "vconv3_torch", boom), \
+            mock.patch.object(cuda_stencil, "row_stencil_torch", boom):
+        cuda_conv.conv3x3_rows(x, wt)
+        cuda_conv.vconv3(x, wt[:, 0].reshape(48, 16))
+        cuda_stencil.row_stencil(x, ((0, 0), (1, 0), (2, 0)), 8, 20)
+    torch.cuda.synchronize()
+    assert boom.call_count == 0
+    assert (cuda_conv.conv3x3_rows.launches, cuda_conv.vconv3.launches,
+            cuda_stencil.row_stencil.launches) == tuple(c + 1 for c in counts)

@@ -33,7 +33,10 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
     mods = ["ssds_tpu_torch"] + [
         m.name for m in pkgutil.walk_packages(ssds_tpu_torch.__path__, prefix="ssds_tpu_torch.")]
     for needed in ("ssds_tpu_torch.detector", "ssds_tpu_torch.ops.postprocess",
-                   "ssds_tpu_torch.models.builder", "ssds_tpu_torch.ops.cuda.nms"):
+                   "ssds_tpu_torch.models.builder", "ssds_tpu_torch.ops.cuda.nms",
+                   "ssds_tpu_torch.ops.conv", "ssds_tpu_torch.ops.stencil",
+                   "ssds_tpu_torch.ops.cuda.conv", "ssds_tpu_torch.ops.cuda.stencil",
+                   "ssds_tpu_torch.tools.conv_bench", "ssds_tpu_torch.tools.conv_probes"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,
