@@ -9,15 +9,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    no GPU means no run;
 2. build: ``ssds_tpu_torch/csrc/*.cu`` compiled with nvcc for sm_90a;
 3. the NMS kernel against its plain PyTorch version, on the card and on the
-   CPU, over the serving shapes and edge cases: masks must be bit-identical;
+   CPU, over the serving shapes, edge cases and every regime of its launch
+   plan (one slot; a cluster of two blocks a slot at batch 1 and 4; several
+   slots a block at batch 32; a ragged last block; N = 512 with more than
+   48 KB of shared memory a block): masks must be bit-identical;
 4. the slice: ``ObjectDetector`` on SSD300-VGG16 (VOC, 21 classes, 8732
    priors, bf16 as the default config says, seeded random weights) serves
    ``predict`` x3 and ``predict_batch`` at batch 4 and 32, with the kernel's
    launch count reset before and read after; then its detections are held
    against the same ``loc`` / ``conf`` through the plain NMS, and a float32
    forward on the card (TF32 off) against the CPU forward;
-5. times: kernel and plain NMS at the serving shapes (CUDA events), batch-1
-   ``predict`` latency and batch-32 ``predict_batch`` throughput;
+5. times: ``ssds_tpu_torch.tools.nms_bench`` at the serving shapes
+   ``[21, 200]`` and ``[672, 200]`` (every candidate valid, as in serving):
+   the kernel's device time, the wrapper's with the host in it and its host
+   microseconds a call, the plain version's time and the kernel's bound;
+   batch-1 ``predict`` latency and batch-32
+   ``predict_batch`` throughput;
 6. the conv kernel (``conv3x3_rows`` in every configuration of ``TILES``, and
    ``vconv3``) against its plain version on the card and on the CPU at small
    shapes with partial strips in W, partial row chunks in H, partial output
@@ -33,7 +40,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and the stencil wrapper's host microseconds per call at bisect2's block).
 
 The line before the last is ``{"kernels": [...]}`` and the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
+line, the NMS entry's ``ms`` is device time alone (launches queued behind a
+sleep kernel: at a few µs a launch, back-to-back calls time the host); its
+``wrapper_ms`` is back-to-back calls, as the conv and stencil ``ms`` are.
 """
 
 from __future__ import annotations
@@ -50,8 +60,11 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda:0"
-NMS_SHAPES = [(21, 200), (84, 200), (672, 200), (5, 1), (3, 37), (9, 512)]  # M = 21 x batch
-NMS_SETS = ["random", "dense_overlap", "tied_scores"]
+# M = 21 x batch; and the launch plan's regimes: one slot, a ragged last
+# block, N = 512 in a cluster (42 KB a block) and two slots a block (84 KB)
+NMS_SHAPES = [(21, 200), (84, 200), (672, 200), (1, 200), (673, 200), (5, 1), (3, 37),
+              (9, 512), (300, 512)]
+NMS_SETS = ["random", "dense_overlap", "tied_scores", "full"]
 THRESHOLDS = (0.45, 0.6)
 SSD300_PRIORS = 8732
 # float32 forward, card (cuDNN, TF32 off) against CPU: the same sums in other
@@ -72,27 +85,10 @@ def log(*args):
     print(*args, flush=True)
 
 
-def nms_case(rng, m, n, kind):
-    """``[m, n]`` score-descending slots with an invalid tail, one all-invalid
-    row (when m > 1) and zero-area boxes."""
-    cxcy = rng.uniform(0.2, 0.8, (m, n, 2))
-    lo, hi = (0.3, 0.5) if kind == "dense_overlap" else (0.05, 0.4)
-    wh = rng.uniform(lo, hi, (m, n, 2))
-    boxes = np.concatenate([cxcy - wh / 2, cxcy + wh / 2], -1).astype(np.float32)
-    boxes[:, ::7, 2:] = boxes[:, ::7, :2]  # zero area
-    raw = rng.uniform(0.01, 1.0, (m, n))
-    if kind == "tied_scores":
-        raw = np.round(raw * 6) / 6 + 0.01
-    scores = -np.sort(-raw.astype(np.float32), axis=-1, kind="stable")
-    for i in range(m):
-        scores[i, rng.integers(n // 2, n + 1):] = -1e30
-    if m > 1:
-        scores[1] = -1e30
-    return torch.from_numpy(boxes), torch.from_numpy(np.ascontiguousarray(scores))
-
-
 def check_nms_kernel(nms_mask, nms_mask_torch, seed):
     """Phase 3: kernel == plain on CUDA == plain on CPU, bit for bit."""
+    from ssds_tpu_torch.tools.nms_bench import nms_case
+
     cases, max_err = 0, 0.0
     for m, n in NMS_SHAPES:
         for kind in NMS_SETS:
@@ -113,8 +109,8 @@ def check_nms_kernel(nms_mask, nms_mask_torch, seed):
                                          f"first differing (slot, cand) {bad}")
                 cases += 1
     log(f"nms kernel: {cases} cases bit-identical to the plain version on CUDA and CPU "
-        f"(shapes {NMS_SHAPES}, sets {NMS_SETS}, thresholds {THRESHOLDS}, "
-        "all-invalid rows and zero-area boxes in every set)")
+        f"(shapes {NMS_SHAPES}, sets {NMS_SETS}, thresholds {THRESHOLDS}; zero-area boxes in "
+        "every set, invalid tails and an all-invalid row in every set but 'full')")
     return max_err
 
 
@@ -168,7 +164,7 @@ def main(argv=None):
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: this script needs a GPU")
-    from ssds_tpu_torch.tools import card_line, time_cuda
+    from ssds_tpu_torch.tools import card_line
 
     card = card_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -260,19 +256,10 @@ def main(argv=None):
     report.update(f32_loc_max_abs_err=loc_err, f32_conf_max_abs_err=conf_err)
 
     # -- 5. times ---------------------------------------------------------------
-    nms_times = {}
-    for m, n in ((21, 200), (672, 200)):
-        boxes, scores = nms_case(np.random.default_rng(m), m, n, "random")
-        bc, sc = boxes.to(dev), scores.to(dev)
-        # plain, kernel, kernel, plain: a drift of the card's clocks falls on both
-        plain_a = time_cuda(lambda: nms_mask_torch(bc, sc, 0.6), 20)
-        kern_a = time_cuda(lambda: nms_mask(bc, sc, 0.6), 200)
-        kern_b = time_cuda(lambda: nms_mask(bc, sc, 0.6), 200)
-        plain_b = time_cuda(lambda: nms_mask_torch(bc, sc, 0.6), 20)
-        nms_times[(m, n)] = (min(kern_a, kern_b), min(plain_a, plain_b))
-        log(f"nms [{m},{n}]: kernel {kern_a:.4f} / {kern_b:.4f} ms, plain "
-            f"{plain_a:.4f} / {plain_b:.4f} ms ({card})")
-        report[f"nms_{m}x{n}"] = {"kernel_ms": [kern_a, kern_b], "plain_ms": [plain_a, plain_b]}
+    from ssds_tpu_torch.tools import nms_bench
+
+    nms_times = nms_bench.run(sets=("full",), seed=args.seed, log=log)["cases"]
+    report["nms_bench"] = nms_times
 
     img = singles[0]
     for _ in range(10):
@@ -331,14 +318,18 @@ def main(argv=None):
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
 
-    kern_ms, plain_ms = nms_times[(672, 200)]
+    b32, b1 = nms_times["672x200/full"], nms_times["21x200/full"]
     default_tile = conv_bench.tile_name(cuda_conv.TILES[0])
     halo = probes["probes"]["elem_halo"]
     slowest = probes["slowest_vs_plain"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55", "launches": launches,
-        "max_abs_err": nms_err, "ms": kern_ms, "plain_ms": plain_ms, "shape": [672, 200],
+        "max_abs_err": nms_err, "ms": min(b32["kernel_ms"]), "plain_ms": min(b32["plain_ms"]),
+        "bound_ms": b32["bound"]["ms"], "bound_by": b32["bound"]["by"], "library_ms": None,
+        "shape": [672, 200], "wrapper_ms": min(b32["wrapper_ms"]),
+        "ms_21x200": min(b1["kernel_ms"]), "plain_ms_21x200": min(b1["plain_ms"]),
+        "bound_ms_21x200": b1["bound"]["ms"], "wrapper_ms_21x200": min(b1["wrapper_ms"]),
     }, {
         "name": "conv3x3_rows", "route": "cuda", "source": "ssds_tpu_torch/csrc/conv3x3.cu",
         "replaces": "tools/pallas_conv_bench.py:50; tools/pallas_conv_bisect.py:71; "
@@ -348,14 +339,20 @@ def main(argv=None):
                             probes["probes"]["dot"]["max_abs_diff"],
                             probes["probes"]["dot3d"]["max_abs_diff"]]),
         "ms": min(bench["tiles"][default_tile]["ms"]), "plain_ms": min(bench["plain_ms"]),
-        "cudnn_ms": min(bench["cudnn_ms"]), "tile": default_tile, "shape": bench["shape"],
+        "bound_ms": bench["bound_ms"], "bound_by": bench["bound_by"],
+        "library_ms": min(bench["cudnn_ms"]), "tile": default_tile, "shape": bench["shape"],
+        "vconv3": {k: probes["probes"]["dot"][k] for k in
+                   ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "shape")},
     }, {
         "name": "row_stencil", "route": "cuda", "source": "ssds_tpu_torch/csrc/stencil.cu",
         "replaces": "; ".join(p.source for p in PROBES.values()), "launches": stencil_launches,
         "max_abs_err": max(probes["probes"][n]["max_abs_diff"] for n in PROBES),
-        "ms": halo["kernel_ms"], "plain_ms": halo["plain_ms"], "shape": halo["shape"],
+        "ms": halo["kernel_ms"], "plain_ms": halo["plain_ms"], "bound_ms": halo["bound_ms"],
+        "bound_by": halo["bound_by"], "library_ms": halo["library_ms"], "shape": halo["shape"],
         "slowest_probe": {"name": slowest, "ms": probes["probes"][slowest]["kernel_ms"],
                           "plain_ms": probes["probes"][slowest]["plain_ms"],
+                          "library_ms": probes["probes"][slowest]["library_ms"],
+                          "bound_ms": probes["probes"][slowest]["bound_ms"],
                           "shape": probes["probes"][slowest]["shape"]},
     }]}))
     log(card)

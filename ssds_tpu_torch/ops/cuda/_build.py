@@ -104,6 +104,8 @@ def load() -> ctypes.CDLL:
                                           ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                           ctypes.c_void_p]
             lib.ssds_nms_mask.restype = ctypes.c_int
+            lib.ssds_nms_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+            lib.ssds_nms_plan.restype = None
             lib.ssds_conv_rows.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [
                 ctypes.c_void_p]
             lib.ssds_conv_rows.restype = ctypes.c_int

@@ -9,9 +9,10 @@ SSD300-VGG16 config and reports:
   device-to-host copy, and the whole ``predict_batch`` on the host clock;
 - the device's busy share over a ``torch.profiler`` window of whole
   ``predict_batch`` calls (summed kernel time over wall time; kernels may
-  overlap, so it is an upper bound) and the top kernels by device time.
-  Only the profiler's device rows are summed: an operator's row repeats
-  the time of the kernels it launched.
+  overlap, so it is an upper bound), the top kernels by device time, and
+  the port's own kernels (:data:`OWN_KERNELS`) wherever they rank. Only the
+  profiler's device rows are summed: an operator's row repeats the time of
+  the kernels it launched.
 
 Needs a GPU; ``--out`` also writes the full tables as JSON.
 """
@@ -26,6 +27,8 @@ import time
 
 import numpy as np
 import torch
+
+OWN_KERNELS = ("nms_mask_kernel",)  # the serving path's hand-written kernels
 
 
 def _events_ms(fn, iters):
@@ -73,11 +76,15 @@ def profile_batch(det, batch, iters, seed):
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: e.device_time_total, reverse=True)
     busy_us = sum(e.device_time_total for e in kernels)
-    top = [{"name": e.key[:100], "calls": e.count,
-            "device_ms": e.device_time_total / 1e3 / iters} for e in kernels[:20]]
+    def row(e):
+        return {"name": e.key[:100], "calls": e.count,
+                "device_ms": e.device_time_total / 1e3 / iters}
+
+    own = [row(e) for e in kernels if any(k in e.key for k in OWN_KERNELS)]
     return {"batch": batch, "stages": stages, "profiled_iters": iters,
             "device_busy_share_upper_bound": busy_us / wall_us,
-            "device_ms_per_call": busy_us / 1e3 / iters, "top_kernels": top}
+            "device_ms_per_call": busy_us / 1e3 / iters,
+            "top_kernels": [row(e) for e in kernels[:20]], "own_kernels": own}
 
 
 def main(argv=None):
@@ -106,6 +113,9 @@ def main(argv=None):
               f"{r['device_ms_per_call']:.3f} device-ms per predict_batch", flush=True)
         for k in r["top_kernels"][:10]:
             print(f"  {k['device_ms']:8.3f} ms  x{k['calls'] // args.iters:<4} {k['name']}")
+        for k in r["own_kernels"]:
+            print(f"  {k['device_ms']:8.4f} ms  x{k['calls'] // args.iters:<4} {k['name']} "
+                  "(the port's)")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -3,9 +3,11 @@
 - :mod:`~ssds_tpu_torch.tools.conv_bench` — the 3x3 stem conv kernel against
   cuDNN and its plain version (``tools/pallas_conv_bench.py``);
 - :mod:`~ssds_tpu_torch.tools.conv_probes` — the 19 probes of the conv's
-  pieces (``tools/pallas_conv_bisect*.py``, ``tools/pallas_elem_halo_probe.py``).
+  pieces (``tools/pallas_conv_bisect*.py``, ``tools/pallas_elem_halo_probe.py``);
+- :mod:`~ssds_tpu_torch.tools.nms_bench` — the serving path's NMS kernel
+  against its bound and its plain version.
 
-Both need a CUDA device. The helpers below time and name it.
+All need a CUDA device. The helpers below time and name it.
 """
 
 from __future__ import annotations
@@ -14,6 +16,18 @@ import subprocess
 import time
 
 import torch
+
+
+BF16_OPS_S = 989e12  # H100 SXM dense bf16 tensor-core peak
+F32_OPS_S = 67e12    # H100 SXM float32 peak outside the tensor cores
+HBM_B_S = 3.35e12    # H100 SXM HBM3
+
+
+def roofline_ms(ops: float, nbytes: float, ops_s: float = BF16_OPS_S):
+    """(ms, "operations" or "bytes"): the least time the card could take, the
+    larger of ``ops`` at ``ops_s`` and ``nbytes`` at the HBM rate."""
+    t_ops, t_bytes = ops / ops_s, nbytes / HBM_B_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def card_line() -> str:
@@ -29,6 +43,30 @@ def time_cuda(fn, iters: int, warmup: int = 5) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_cuda_queued(fn, iters: int, warmup: int = 5) -> float:
+    """Mean device milliseconds of ``fn()`` over ``iters`` launches queued
+    behind a sleep kernel (CUDA events). The host enqueues every launch while
+    the card sleeps, so the events see the kernels back to back and not the
+    host's launch rate, which :func:`time_cuda` sees for a kernel shorter than
+    its launch."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    enqueue_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (3 * enqueue_s + 1e-3)))  # cycles: >= 3x the enqueue at <= 2 GHz
     start.record()
     for _ in range(iters):
         fn()

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 
 from ssds_tpu_torch.ops.conv import ATOL, RTOL, conv3x3_rows_torch
 from ssds_tpu_torch.ops.cuda.conv import TILES, Tile, conv3x3_rows
-from ssds_tpu_torch.tools import card_line, need_cuda, time_cuda
+from ssds_tpu_torch.tools import card_line, need_cuda, roofline_ms, time_cuda
 
 H = W = 300
 CIN = COUT = 64
@@ -51,6 +51,7 @@ def run(batch: int = 32, tiles=TILES, iters: int = 20, seed: int = 0, log=print)
     w = torch.from_numpy(rng.normal(0, 0.05, (3, 3, CIN, COUT)).astype(np.float32))
     x, w = x.to(dev).to(torch.bfloat16), w.to(dev).to(torch.bfloat16)
     flop = 2 * batch * H * W * 9 * CIN * COUT
+    bound_ms, bound_by = roofline_ms(flop, 2 * (x.numel() + w.numel() + batch * H * W * COUT))
     log(f"conv_bench: x {list(x.shape)} bf16 NHWC, w {list(w.shape)} HWIO, "
         f"{flop / 1e9:.1f} GFLOP per call ({card})")
 
@@ -66,7 +67,7 @@ def run(batch: int = 32, tiles=TILES, iters: int = 20, seed: int = 0, log=print)
 
     cudnn_err = (cudnn().permute(0, 2, 3, 1).float() - ref.float()).abs().max().item()
     result = {"card": card, "shape": list(x.shape), "gflop": flop / 1e9, "tiles": {},
-              "cudnn_max_abs_err": cudnn_err}
+              "cudnn_max_abs_err": cudnn_err, "bound_ms": bound_ms, "bound_by": bound_by}
     for tile in tiles:
         err, ndiff = compare(conv3x3_rows(x, w, tile), ref)
         result["tiles"][tile_name(tile)] = {"max_abs_err": err, "n_diff": ndiff, "ms": []}
@@ -90,6 +91,8 @@ def run(batch: int = 32, tiles=TILES, iters: int = 20, seed: int = 0, log=print)
     line("plain float32 (TF32 off)", result["plain_ms"], 0.0)
     for name, t in result["tiles"].items():
         line(f"cuda tile={name}", t["ms"], t["max_abs_err"], f"  differing {t['n_diff']}")
+    log(f"bound {bound_ms:.4f} ms ({bound_by}: {flop / 1e9:.1f} GFLOP at 989 TFLOP/s bf16, "
+        f"x, w and the output once at 3.35 TB/s)")
     log(f"({card})")
     return result
 

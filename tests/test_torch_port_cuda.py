@@ -56,7 +56,8 @@ def _sorted_set(rng, m, n, lo=0.05, hi=0.4, levels=0):
 
 
 @pytest.mark.parametrize("kind", ["random", "dense_overlap", "tied_scores"])
-@pytest.mark.parametrize("m,n", [(21, 200), (672, 200), (5, 1), (3, 37), (9, 512)])
+@pytest.mark.parametrize("m,n", [(21, 200), (672, 200), (5, 1), (3, 37), (9, 512), (1, 200),
+                                 (673, 200), (300, 512)])
 def test_kernel_bit_identical_to_plain(cuda, m, n, kind):
     rng = np.random.default_rng(m * 1000 + n)
     boxes, scores = _sorted_set(rng, m, n, *((0.3, 0.5) if kind == "dense_overlap" else ()),
@@ -71,6 +72,47 @@ def test_kernel_bit_identical_to_plain(cuda, m, n, kind):
         assert torch.equal(got, nms_mask_torch(bc, sc, thr).cpu())
         assert torch.equal(got, nms_mask_torch(boxes, scores, thr))
         assert not got[m // 2].any()
+
+
+# (M, N) in each regime of the launch plan: one slot, batch 1 and batch 4 (a
+# cluster of 2 blocks a slot); a block a slot; several
+# slots a block, two blocks an SM (batch 32); a ragged last block; N = 512
+# in a cluster, with two slots a block (84 KB of dynamic shared memory) and
+# five, one block an SM (211 KB)
+PLAN_REGIMES = [(1, 200), (21, 200), (84, 200), (200, 200), (672, 200), (673, 200), (9, 512),
+                (300, 512), (672, 512)]
+
+
+@pytest.mark.parametrize("m,n", PLAN_REGIMES, ids=str)
+def test_kernel_in_every_launch_plan_regime(cuda, m, n):
+    """Every candidate valid, as in serving: the most work the kernel does."""
+    rng = np.random.default_rng([m, n])
+    boxes, scores = _sorted_set(rng, m, n)
+    scores = torch.from_numpy(-np.sort(-rng.uniform(0.01, 1.0, (m, n)).astype(np.float32), -1))
+    plan = cuda_nms.launch_plan(m, n, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert plan.slots > 1 or m <= 264
+    assert plan.cluster > 1 or m > 132
+    bc, sc = boxes.to(cuda), scores.to(cuda)
+    for thr in (0.45, 0.6):
+        before = cuda_nms.nms_mask.launches
+        got = cuda_nms.nms_mask(bc, sc, thr)
+        torch.cuda.synchronize()
+        assert cuda_nms.nms_mask.launches == before + 1
+        assert torch.equal(got.cpu(), nms_mask_torch(boxes, scores, thr))
+
+
+def test_launch_plan_mirror_equals_the_kernels(cuda):
+    """ops/cuda/nms.py::launch_plan against csrc/nms.cu's plan."""
+    import ctypes
+
+    from ssds_tpu_torch.ops.cuda import _build
+
+    lib, out = _build.load(), (ctypes.c_int * 5)()
+    for sms in (132, 114, 1):
+        for m in (1, 5, 21, 84, 132, 133, 264, 672, 673, 2000):
+            for n in (1, 31, 32, 33, 64, 200, 300, 511, 512):
+                lib.ssds_nms_plan(m, n, sms, out)
+                assert tuple(out) == tuple(cuda_nms.launch_plan(m, n, sms)), (m, n, sms)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -301,16 +343,20 @@ def test_cuda_tensors_never_take_the_plain_versions(cuda):
     tensors, and each launch moves its counter."""
     rng = np.random.default_rng(5)
     x, wt = _bf16(rng, (1, 10, 20, 16)).to(cuda), _bf16(rng, (3, 3, 16, 16), 0.05).to(cuda)
+    boxes, scores = (t.to(cuda) for t in _sorted_set(rng, 3, 40))
     boom = mock.Mock(side_effect=AssertionError("plain version called on a CUDA tensor"))
     counts = (cuda_conv.conv3x3_rows.launches, cuda_conv.vconv3.launches,
-              cuda_stencil.row_stencil.launches)
+              cuda_stencil.row_stencil.launches, cuda_nms.nms_mask.launches)
     with mock.patch.object(cuda_conv, "conv3x3_rows_torch", boom), \
             mock.patch.object(cuda_conv, "vconv3_torch", boom), \
-            mock.patch.object(cuda_stencil, "row_stencil_torch", boom):
+            mock.patch.object(cuda_stencil, "row_stencil_torch", boom), \
+            mock.patch.object(cuda_nms, "nms_mask_torch", boom):
         cuda_conv.conv3x3_rows(x, wt)
         cuda_conv.vconv3(x, wt[:, 0].reshape(48, 16))
         cuda_stencil.row_stencil(x, ((0, 0), (1, 0), (2, 0)), 8, 20)
+        cuda_nms.nms_mask(boxes, scores, 0.5)
     torch.cuda.synchronize()
     assert boom.call_count == 0
     assert (cuda_conv.conv3x3_rows.launches, cuda_conv.vconv3.launches,
-            cuda_stencil.row_stencil.launches) == tuple(c + 1 for c in counts)
+            cuda_stencil.row_stencil.launches,
+            cuda_nms.nms_mask.launches) == tuple(c + 1 for c in counts)

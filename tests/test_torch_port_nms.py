@@ -20,6 +20,7 @@ import oracle
 from ssds_tpu.ops import nms as jnms
 from ssds_tpu.ops.pallas.nms import nms_mask_pallas
 from ssds_tpu_torch.ops import nms as tnms
+from ssds_tpu_torch.ops.boxes import jaccard
 from ssds_tpu_torch.ops.cuda import nms as cuda_nms
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -163,3 +164,130 @@ def test_cuda_module_imports_and_serves_cpu_without_nvcc(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "no-nvcc-ok" in proc.stdout
 
+
+
+# -- the kernel's algorithm and launch plan, emulated on the CPU -------------
+
+EMU_N = [1, 31, 32, 33, 200, 512]
+EMU_KINDS = ["random", "tied_scores", "dense_overlap", "full"]
+
+
+def _emu_case(n, kind):
+    """Three slots with zero-area boxes; slot 1 all invalid; an invalid tail
+    in each slot but for "full"."""
+    rng = np.random.default_rng([n, EMU_KINDS.index(kind)])
+    lo, hi = (0.3, 0.5) if kind == "dense_overlap" else (0.05, 0.4)
+    boxes, scores = _sorted_set(rng, 3, n, lo, hi, invalid_tail=kind != "full",
+                                levels=6 if kind == "tied_scores" else 0)
+    boxes[:, ::5, 2:] = boxes[:, ::5, :2]
+    scores[1] = NEG_INF
+    return boxes, scores
+
+
+@pytest.mark.parametrize("thr", [0.45, 0.6])
+@pytest.mark.parametrize("kind", EMU_KINDS)
+@pytest.mark.parametrize("n", EMU_N)
+def test_kernel_emulation_equals_plain_and_pallas(n, kind, thr):
+    """Upper-triangle words, phase 2 a word at a time with the diagonal block
+    resolved bit by bit: bit-identical to the plain version and to the Pallas
+    kernel in interpret mode. Words the kernel never writes hold poison in the
+    emulation, so a read of one would show."""
+    boxes, scores = _emu_case(n, kind)
+    bt, st = torch.from_numpy(boxes), torch.from_numpy(scores)
+    got = cuda_nms.nms_mask_emulated(bt, st, thr).numpy()
+    np.testing.assert_array_equal(got, tnms.nms_mask_torch(bt, st, thr).numpy())
+    np.testing.assert_array_equal(got, _reference("pallas_interpret", boxes, scores, thr))
+    assert not got[1].any()
+
+
+@pytest.mark.parametrize("n", [33, 200])
+def test_suppression_words_are_the_plain_upper_triangle(n):
+    """Phase 1 writes exactly the words at or right of each valid row's
+    diagonal tile, below n_eff, and they hold the plain version's bits."""
+    boxes, scores = (torch.from_numpy(a) for a in _emu_case(n, "random"))
+    sup, valid, n_eff = cuda_nms.suppression_words(boxes, scores, 0.5)
+    lay = cuda_nms.slot_layout(n)
+    assert sup.shape == (3, lay.words, lay.rows)
+    plain = (jaccard(boxes, boxes) > 0.5) & (torch.arange(n)[None, :] > torch.arange(n)[:, None])
+    is_valid = scores > NEG_INF / 2
+    for s in range(scores.shape[0]):
+        ne = int(n_eff[s])
+        assert ne == (int(is_valid[s].nonzero().max()) + 1 if is_valid[s].any() else 0)
+        for w in range(lay.words):
+            bits = sum(int(b) << t for t, b in enumerate(is_valid[s, 32 * w:32 * w + 32]))
+            assert int(valid[s, w]) == bits
+        for c in range(lay.words):
+            for i in range(lay.rows):
+                word = int(sup[s, c, i])
+                if i < ne and i // 32 <= c < -(-ne // 32):
+                    cols = plain[s, i, 32 * c:min(32 * c + 32, ne)]
+                    assert word == sum(int(b) << t for t, b in enumerate(cols))
+                else:
+                    assert word == 0xFFFFFFFF  # never written, never applied
+
+
+def test_slot_layout_is_sized_by_n():
+    assert cuda_nms.slot_layout(200) == (7, 224, 225, 10816)  # ~10.6 KB a slot at N = 200
+    assert cuda_nms.slot_layout(512) == (16, 512, 513, 43136)  # odd stride: 32 banks
+    assert cuda_nms.slot_layout(1).bytes == 784
+
+
+@pytest.mark.parametrize("n", EMU_N)
+@pytest.mark.parametrize("m", [1, 21, 672, 673])
+def test_launch_plan_covers_each_slot_once_and_fits(m, n):
+    plan = cuda_nms.launch_plan(m, n)
+    clusters = [[cuda_nms.block_slots(m, plan, b) for b in range(first, first + plan.cluster)]
+                for first in range(0, plan.blocks, plan.cluster)]
+    assert all(len(set(c)) == 1 for c in clusters)  # a cluster's blocks share their slots
+    assert [s for c in clusters for s in c[0]] == list(range(m))
+    assert 1 <= plan.slots <= cuda_nms.MAX_SLOTS and plan.threads // 32 >= plan.slots
+    assert plan.smem == cuda_nms.HEADER_BYTES + plan.slots * cuda_nms.slot_layout(n).bytes
+    assert plan.smem <= cuda_nms.MAX_SMEM  # 227 KB
+    per_sm = cuda_nms.SM_SMEM // (plan.smem + cuda_nms.BLOCK_RESERVE)
+    if m <= cuda_nms.H100_SMS:  # a cluster of 16-warp blocks a slot, the grid in one wave
+        assert plan.slots == 1 and plan.threads == 512 and plan.cluster > 1
+        assert plan.blocks == m * plan.cluster <= 2 * cuda_nms.H100_SMS
+    elif m <= 2 * cuda_nms.H100_SMS:
+        assert (plan.slots, plan.threads, plan.blocks, plan.cluster) == (1, 512, m, 1)
+    else:
+        assert plan.slots > 1
+        fit = (cuda_nms.MAX_SMEM - cuda_nms.HEADER_BYTES) // cuda_nms.slot_layout(n).bytes
+        assert plan.blocks <= min(per_sm, 2) * cuda_nms.H100_SMS or plan.slots == fit
+
+
+@pytest.mark.parametrize("m,n,want", [
+    (1, 200, (1, 512, 2, 10944, 2)),       # one slot: a cluster of 2 blocks
+    (21, 200, (1, 512, 42, 10944, 2)),     # batch 1: 2 blocks of 16 warps a slot
+    (84, 200, (1, 512, 168, 10944, 2)),    # batch 4
+    (200, 200, (1, 512, 200, 10944, 1)),   # a block a slot
+    (672, 200, (3, 512, 224, 32576, 1)),   # batch 32: two blocks an SM, one wave
+    (673, 200, (3, 512, 225, 32576, 1)),   # ragged last block
+    (300, 512, (2, 512, 150, 86400, 1)),   # > 48 KB of dynamic shared memory
+    (672, 512, (5, 512, 135, 215808, 1)),  # one block an SM; the block's memory caps it
+], ids=str)
+def test_launch_plan_regimes(m, n, want):
+    assert tuple(cuda_nms.launch_plan(m, n)) == want
+
+
+@pytest.mark.parametrize("n_effs", [[200], [0], [1, 33, 0, 200, 64, 511, 32, 31]], ids=str)
+def test_block_tiles_cover_each_upper_triangle_tile_once(n_effs):
+    tiles = cuda_nms.block_tiles(n_effs)
+    want = [(s, r, c) for s, ne in enumerate(n_effs)
+            for r in range(-(-ne // 32)) for c in range(-(-ne // 32)) if c >= r]
+    assert sorted(tiles) == sorted(want) and len(set(tiles)) == len(tiles)
+
+
+@pytest.mark.parametrize("m,n", [(1, 512), (21, 200), (84, 200), (672, 200)], ids=str)
+def test_every_tile_has_one_warp(m, n):
+    """Warp g of block q in the cluster takes tiles g + q * warps, stepping by
+    warps * cluster: together, each tile once."""
+    plan = cuda_nms.launch_plan(m, n)
+    warps, total = plan.threads // 32, len(cuda_nms.block_tiles([n] * plan.slots))
+    taken = [k for q in range(plan.cluster) for g in range(warps)
+             for k in range(g + q * warps, total, warps * plan.cluster)]
+    assert sorted(taken) == list(range(total))
+    assert all(cuda_nms.tile_owner(k, plan)[0] < plan.cluster for k in taken)
+    for q in range(plan.cluster):
+        for g in range(warps):
+            ks = range(g + q * warps, total, warps * plan.cluster)
+            assert all(cuda_nms.tile_owner(k, plan) == (q, g) for k in ks)
