@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path and conv-prototype path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, conv-prototype and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -37,9 +37,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and ``ssds_tpu_torch.tools.conv_probes`` (the 17 stencil probes
    bit-identical to the plain version on the card and the CPU, the 2 dot
    probes within the conv tolerance, each timed against its plain version,
-   and the stencil wrapper's host microseconds per call at bisect2's block).
+   and the stencil wrapper's host microseconds per call at bisect2's block);
+8. the training path: SSD300-VGG16 (bf16, ``TRAIN.BATCH_SIZE`` 32) trained by
+   ``Solver.train_model`` for 20 epochs (40 steps) over a synthetic VOC tree
+   (``tools.synth_voc``: XML annotations on disk, 64 ``trainval`` and 32
+   ``test`` images drawn in memory from ``--seed``, as the card's machine
+   cannot decode JPEGs), with the eval of the last epoch at
+   ``TEST.BATCH_SIZE`` 64 through ``detect`` and the NMS kernel (its launches
+   reset before and read after); losses finite and falling, mAP in [0, 1],
+   checkpoint and manifest written; a fresh ``Solver`` resumes at the last
+   epoch with the saved weights and ``test_model`` gives a mAP; an
+   ``ObjectDetector`` on the checkpoint gives the solver's detect rows; one
+   float32 step on the card against the same step on the CPU; the batch-32
+   train step's time and the batch-64 eval's img/s.
 
-The line before the last is ``{"kernels": [...]}`` and the last line is
+Before the last two lines comes ``{"training": {...}}``; the line before the
+last is ``{"kernels": [...]}`` and the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
 line, the NMS entry's ``ms`` is device time alone (launches queued behind a
 sleep kernel: at a few µs a launch, back-to-back calls time the host); its
@@ -49,9 +62,11 @@ sleep kernel: at a few µs a launch, back-to-back calls time the host); its
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -63,7 +78,7 @@ DEVICE = "cuda:0"
 # M = 21 x batch; and the launch plan's regimes: one slot, a ragged last
 # block, N = 512 in a cluster (42 KB a block) and two slots a block (84 KB)
 NMS_SHAPES = [(21, 200), (84, 200), (672, 200), (1, 200), (673, 200), (5, 1), (3, 37),
-              (9, 512), (300, 512)]
+              (9, 512), (300, 512), (1344, 200)]  # the last: training's eval at batch 64
 NMS_SETS = ["random", "dense_overlap", "tied_scores", "full"]
 THRESHOLDS = (0.45, 0.6)
 SSD300_PRIORS = 8732
@@ -71,6 +86,16 @@ SSD300_PRIORS = 8732
 # orders through the 15 VGG convs, the extras and the heads. Measured on an
 # NVIDIA H100 80GB HBM3: 1.3e-5 on loc (max |loc| 4.5) and 5.1e-6 on conf.
 F32_RTOL, F32_ATOL = 1e-4, 1e-4
+# phase 8: a float32 train step at batch 2, card (TF32 off) against CPU. The
+# losses: rtol 1e-4, as the forward (measured 7.5e-8). Each parameter's
+# update (the LR times the momentum buffer, i.e. gradient plus decay, read
+# before it is rounded into the weights): within 1e-2 of the CPU update's
+# norm. Measured on an NVIDIA H100 80GB HBM3: 1.3e-4 in the median tensor,
+# 2.8e-3 at most (conv5_1, base.24): the backward sums in other orders, and
+# a pre-activation that lands on the other side of 0 sends its gradient
+# down another path through the deep ReLUs.
+STEP_RTOL, UPDATE_RTOL = 1e-4, 1e-2
+TRAIN_EPOCHS, TRAIN_IMAGES, TEST_IMAGES = 20, 64, 32
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -151,6 +176,197 @@ def check_conv_kernel(seed):
         f"version on CUDA and CPU, max |d| {max_err:.3e} (conv3x3_rows {CONV_SHAPES} x tiles "
         f"{list(TILES)}; vconv3 {VCONV_SHAPES})")
     return max_err
+
+
+class ScalarWriter:
+    """The summary writer the Solver is given: it keeps every scalar."""
+
+    def __init__(self):
+        self.scalars = {}
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.setdefault(tag, []).append((step, float(value)))
+
+
+def training_config(root, exp):
+    """The default SSD300-VGG16 config (bf16, batch 32, SGD) over the
+    synthetic VOC tree: no augmentation (it needs cv2), no warm-up, the eval
+    in the last epoch, checkpoints every 10 epochs."""
+    from ssds_tpu_torch.config import default_config
+
+    cfg = default_config()
+    cfg.DATASET.update(DATASET_DIR=root, TRAIN_SETS=[["2007", "trainval"]],
+                       TEST_SETS=[["2007", "test"]], PROB=-1, NUM_WORKERS=4)
+    cfg.TRAIN.update(MAX_EPOCHS=TRAIN_EPOCHS, CHECKPOINTS_EPOCHS=10)
+    cfg.TRAIN.LR_SCHEDULER.WARM_UP_EPOCHS = 0
+    cfg.TEST.TEST_SCOPE = [TRAIN_EPOCHS, TRAIN_EPOCHS]
+    cfg.PHASE = ["train", "eval"]
+    cfg.EXP_DIR, cfg.LOG_DIR = exp, os.path.join(exp, "logs")
+    return cfg
+
+
+def one_step_card_against_cpu(cfg, dev, dataset, seed):
+    """One float32 train step at batch 2 on the card and on the CPU from the
+    same weights and batch: ``(loss rel. errors, max update rel. error)``."""
+    from ssds_tpu_torch.data.factory import detection_collate
+    from ssds_tpu_torch.solver import Solver
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.MODEL.HALF_PRECISION = False
+    cfg32.TRAIN.BATCH_SIZE = 2
+    batch = detection_collate([dataset[0], dataset[1]], int(cfg.DATASET.MAX_GT))
+    results = []
+    for device in (dev, "cpu"):
+        s = Solver(cfg32, device=device, writer=ScalarWriter(), seed=seed)
+        s.build_state(steps_per_epoch=1)
+        m = s.make_train_step()(s._upload(batch), 0)
+        lr = s.optimizer.param_groups[0]["lr"]
+        updates = {n: (lr * s.optimizer.state[p]["momentum_buffer"]).cpu()
+                   for n, p in s.model.named_parameters()}
+        results.append(({k: float(v) for k, v in m.items()}, updates))
+        del s
+    (mg, ug), (mc, uc) = results
+    loss_err = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss_l", "loss_c")}
+    upd_err = {n: float((ug[n] - uc[n]).norm() / uc[n].norm()) for n in uc if uc[n].norm() > 0}
+    return mg, mc, loss_err, upd_err
+
+
+def check_training(seed, dev, card, log):
+    """Phase 8: the training path, end to end; returns the numbers."""
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.detector import ObjectDetector
+    from ssds_tpu_torch.ops.cuda.nms import nms_mask
+    from ssds_tpu_torch.solver import Solver
+    from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
+        root, exp = os.path.join(tmp, "VOCdevkit"), os.path.join(tmp, "exp")
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
+        cfg = training_config(root, exp)
+        writer = ScalarWriter()
+        solver = Solver(cfg, device=dev, writer=writer, seed=seed)
+        resumed = None
+        try:
+            # -- train, with the eval of the last epoch
+            nms_mask.launches = 0
+            t0 = time.perf_counter()
+            solver.train_model()
+            torch.cuda.synchronize()
+            out["train_model_s"] = time.perf_counter() - t0
+            out["nms_launches_eval"] = nms_mask.launches
+            epoch_loss = [l + c for (_, l), (_, c) in zip(writer.scalars["loss_loc"],
+                                                          writer.scalars["loss_conf"])]
+            out["epoch_loss"] = epoch_loss
+            out["steps"] = solver.step
+            out["eval_map"] = writer.scalars["Eval/mAP"][-1][1]
+            out["eval_loss"] = writer.scalars["Eval/loss_loc"][-1][1] + \
+                writer.scalars["Eval/loss_conf"][-1][1]
+            log(f"trained SSD300-VGG16 bf16 batch 32: {len(epoch_loss)} epochs, {solver.step} "
+                f"steps in {out['train_model_s']:.1f} s; epoch mean loss first {epoch_loss[0]:.4f} "
+                f"last {epoch_loss[-1]:.4f}; eval mAP {out['eval_map']:.4f}, loss "
+                f"{out['eval_loss']:.4f}; nms kernel launches {nms_mask.launches}")
+            if not all(np.isfinite(v) for vals in writer.scalars.values() for _, v in vals):
+                raise AssertionError(f"a loss is not finite: {writer.scalars}")
+            if not (len(epoch_loss) == TRAIN_EPOCHS and epoch_loss[-1] < epoch_loss[0]):
+                raise AssertionError(f"the loss did not fall: {epoch_loss}")
+            if not 0.0 <= out["eval_map"] <= 1.0:
+                raise AssertionError(f"eval mAP {out['eval_map']} outside [0, 1]")
+            if out["nms_launches_eval"] <= 0:
+                raise AssertionError("the eval never launched the NMS kernel")
+            ckpt = os.path.join(exp, f"{cfg.CHECKPOINTS_PREFIX}_epoch_{TRAIN_EPOCHS}.pth")
+            with open(os.path.join(exp, "checkpoint_list.txt")) as f:
+                manifest = f.read().splitlines()
+            if not os.path.exists(ckpt) or manifest[-1] != f"epoch {TRAIN_EPOCHS}:" \
+                    f"{os.path.basename(ckpt)}":
+                raise AssertionError(f"checkpoint or manifest line missing: {manifest}")
+            log(f"checkpoint {os.path.basename(ckpt)} ({os.path.getsize(ckpt) / 1e6:.1f} MB), "
+                f"manifest {manifest}")
+
+            # -- resume, test, deploy
+            t_resume = time.perf_counter()
+            resumed = Solver(cfg, device=dev, writer=ScalarWriter(), seed=seed + 1)
+            resumed.train_model()  # auto-resume at the last epoch: no epoch left
+            want = solver.model.state_dict()
+            same = all(torch.equal(v, want[k]) for k, v in resumed.model.state_dict().items())
+            if resumed.start_epoch != TRAIN_EPOCHS or not same:
+                raise AssertionError(f"resume: epoch {resumed.start_epoch}, weights equal {same}")
+            nms_mask.launches = 0
+            out["test_map"] = resumed.test_model()
+            torch.cuda.synchronize()
+            out["nms_launches_test"] = nms_mask.launches
+            if not (0.0 <= out["test_map"] <= 1.0 and out["nms_launches_test"] > 0):
+                raise AssertionError(f"test_model: mAP {out['test_map']}, "
+                                     f"{out['nms_launches_test']} nms launches")
+            dcfg = copy.deepcopy(cfg)
+            dcfg.RESUME_CHECKPOINT = ckpt
+            det = ObjectDetector(dcfg, device=dev)
+            test_set = resumed.get_loader("test").dataset
+            imgs = np.stack([test_set.pull_image(i) for i in range(4)])
+            with torch.no_grad():
+                rows = det.detect_rows(imgs)
+                want_rows = resumed.make_eval_forward()(torch.from_numpy(imgs).to(dev))
+            if not torch.equal(rows, want_rows):
+                raise AssertionError("ObjectDetector on the checkpoint != the solver's eval rows: "
+                                     f"max |d| {(rows - want_rows).abs().max().item():.3e}")
+            log(f"resumed at epoch {resumed.start_epoch} with the saved weights; test_model mAP "
+                f"{out['test_map']:.4f} ({out['nms_launches_test']} nms launches); "
+                f"ObjectDetector on {os.path.basename(ckpt)}: detect rows of 4 test images "
+                "identical to the solver's eval forward")
+            del det
+
+            # -- times: the batch-32 train step (upload included) and the batch-64 eval
+            out["resume_test_deploy_s"] = time.perf_counter() - t_resume
+            host = next(iter(solver.get_loader("train")))
+            step = solver._train_step
+            for _ in range(3):
+                step(solver._upload(host), solver.step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                step(solver._upload(host), solver.step)
+            torch.cuda.synchronize()
+            out["train_step_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+            out["train_img_s"] = 32 / out["train_step_ms"] * 1e3
+            ebatch = solver._upload(next(iter(solver.get_loader("eval"))))
+            eval_step = solver.make_eval_step()
+            solver.model.eval()
+            for _ in range(2):
+                eval_step(ebatch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                eval_step(ebatch)
+            torch.cuda.synchronize()
+            out["eval_img_s"] = 10 * 64 / (time.perf_counter() - t0)
+            log(f"train step SSD300-VGG16 bf16 batch 32 (20 steps after 3 warm-up, upload "
+                f"included): {out['train_step_ms']:.3f} ms, {out['train_img_s']:.1f} img/s; eval "
+                f"(forward, loss, detect) at batch 64: {out['eval_img_s']:.1f} img/s ({card})")
+        finally:
+            solver.close()
+            if resumed is not None:
+                resumed.close()
+
+        # -- one float32 step, card against CPU
+        t0 = time.perf_counter()
+        mg, mc, loss_err, upd_err = one_step_card_against_cpu(
+            cfg, dev, factory.load_data(cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE).dataset, seed)
+        out["f32_step_s"] = time.perf_counter() - t0
+    worst = max(upd_err, key=upd_err.get)
+    out["f32_step"] = {"card": mg, "cpu": mc, "loss_rel_err": loss_err,
+                       "update_rel_err_max": upd_err[worst], "update_rel_err_worst": worst,
+                       "loss_rtol": STEP_RTOL, "update_rtol": UPDATE_RTOL}
+    log(f"float32 train step batch 2, card (TF32 off) vs CPU: loss_l {mg['loss_l']:.6f} / "
+        f"{mc['loss_l']:.6f}, loss_c {mg['loss_c']:.6f} / {mc['loss_c']:.6f} (rel "
+        f"{loss_err['loss_l']:.2e} / {loss_err['loss_c']:.2e}); update norm-relative error max "
+        f"{upd_err[worst]:.2e} ({worst}), median {float(np.median(list(upd_err.values()))):.2e}; "
+        f"seconds: train_model {out['train_model_s']:.1f}, resume/test/deploy "
+        f"{out['resume_test_deploy_s']:.1f}, float32 step card and CPU {out['f32_step_s']:.1f}")
+    if max(loss_err.values()) > STEP_RTOL or upd_err[worst] > UPDATE_RTOL:
+        raise AssertionError(f"float32 step card vs CPU outside rtol {STEP_RTOL} / "
+                             f"{UPDATE_RTOL}: {loss_err}, {worst} {upd_err[worst]:.3e}")
+    return out
 
 
 def main(argv=None):
@@ -313,15 +529,22 @@ def main(argv=None):
     report.update(conv_kernel_max_abs_err=conv_err, conv_bench=bench, conv_probes=probes,
                   conv_launches_main_path=conv_launches,
                   stencil_launches_main_path=stencil_launches)
+
+    # -- 8. the training path -------------------------------------------------
+    training = check_training(args.seed, dev, card, log)
+    report["training"] = training
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
             json.dump(report, f, indent=1)
 
-    b32, b1 = nms_times["672x200/full"], nms_times["21x200/full"]
+    b32, b1, b64 = (nms_times[f"{m}x200/full"] for m in (672, 21, 1344))
     default_tile = conv_bench.tile_name(cuda_conv.TILES[0])
     halo = probes["probes"]["elem_halo"]
     slowest = probes["slowest_vs_plain"]
+    log(json.dumps({"training": {k: training[k] for k in (
+        "epoch_loss", "steps", "eval_map", "test_map", "nms_launches_eval", "nms_launches_test",
+        "train_step_ms", "train_img_s", "eval_img_s", "train_model_s", "f32_step", "card")}}))
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55", "launches": launches,
@@ -330,6 +553,9 @@ def main(argv=None):
         "shape": [672, 200], "wrapper_ms": min(b32["wrapper_ms"]),
         "ms_21x200": min(b1["kernel_ms"]), "plain_ms_21x200": min(b1["plain_ms"]),
         "bound_ms_21x200": b1["bound"]["ms"], "wrapper_ms_21x200": min(b1["wrapper_ms"]),
+        "launches_training": training["nms_launches_eval"] + training["nms_launches_test"],
+        "ms_1344x200": min(b64["kernel_ms"]), "plain_ms_1344x200": min(b64["plain_ms"]),
+        "bound_ms_1344x200": b64["bound"]["ms"], "wrapper_ms_1344x200": min(b64["wrapper_ms"]),
     }, {
         "name": "conv3x3_rows", "route": "cuda", "source": "ssds_tpu_torch/csrc/conv3x3.cu",
         "replaces": "tools/pallas_conv_bench.py:50; tools/pallas_conv_bisect.py:71; "

@@ -1,0 +1,247 @@
+"""Dataset factory and the host input pipeline.
+
+Counterpart of :mod:`ssds_tpu.data.factory` (reference
+``lib/dataset/dataset_factory.py``): ``load_data(cfg.DATASET, phase)`` picks
+TRAIN_SETS or TEST_SETS, builds ``preproc(IMAGE_SIZE, PIXEL_MEANS, PROB)``
+(PROB = -1 outside training) and wraps the dataset in a loader whose
+``detection_collate`` pads every image's targets to ``MAX_GT`` rows with a
+validity mask, so each phase runs at one batch shape.
+
+- Worker processes are forked, as torch's ``DataLoader`` forks them: the
+  augmentation's numpy/Python parts hold the GIL, so threads cannot spread
+  it. The workers run the dataset and numpy only; they never touch CUDA.
+  :meth:`DetectionLoader.close` ends them.
+- Train batches drop the last partial batch; eval batches pad the last one
+  by wrapping around and the eval keeps the true image count.
+- Only ``voc`` is ported; COCO (``data/coco.py``, ``data/coco_eval.py``) is
+  not yet.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import sys
+from typing import Iterator
+
+import numpy as np
+
+from ssds_tpu_torch.data.augment import preproc
+from ssds_tpu_torch.data.voc import VOCDetection
+
+dataset_map = {"voc": VOCDetection}
+
+
+def detection_collate(samples, max_gt: int) -> dict:
+    """Stack images (uint8 kept) and pad targets to ``[B, max_gt]`` with a
+    validity mask; ``sizes`` are the original ``(h, w)`` when given."""
+    images = np.stack([s[0] for s in samples])
+    b = len(samples)
+    boxes = np.zeros((b, max_gt, 4), np.float32)
+    labels = np.zeros((b, max_gt), np.int32)
+    valid = np.zeros((b, max_gt), bool)
+    sizes = np.zeros((b, 2), np.int32)
+    for i, sample in enumerate(samples):
+        if len(sample) > 2:
+            sizes[i] = sample[2]
+        t = np.asarray(sample[1], np.float32).reshape(-1, 5)
+        # an all-zero single row is preproc's "no GT" sentinel
+        if not (t.shape[0] == 1 and not t.any()):
+            n = min(t.shape[0], max_gt)
+            boxes[i, :n] = t[:n, :4]
+            labels[i, :n] = t[:n, 4].astype(np.int32)
+            valid[i, :n] = True
+    return {"images": images, "boxes": boxes, "labels": labels, "valid": valid, "sizes": sizes}
+
+
+def truncation_stats(samples, max_gt: int):
+    """``(boxes dropped by the max_gt pad, max per-image GT count)`` of one
+    batch; the loader adds them up over an epoch so that no label is lost
+    silently."""
+    dropped = 0
+    max_seen = 0
+    for sample in samples:
+        t = np.asarray(sample[1], np.float32).reshape(-1, 5)
+        if t.shape[0] == 1 and not t.any():
+            continue  # "no GT" sentinel
+        max_seen = max(max_seen, t.shape[0])
+        dropped += max(0, t.shape[0] - max_gt)
+    return dropped, max_seen
+
+
+# -- fork-pool plumbing: the children inherit the dataset, batches come back
+# pickled (batches this module's own workers made)
+_WORKER_DATASET = None
+_WORKER_MAX_GT = None
+
+
+def _worker_init(dataset, max_gt, seed):
+    global _WORKER_DATASET, _WORKER_MAX_GT
+    _WORKER_DATASET = dataset
+    _WORKER_MAX_GT = max_gt
+    random.seed((os.getpid() * 1000003) ^ seed)
+    np.random.seed((os.getpid() * 7919 + seed) % (2**32))
+
+
+def _worker_make_batch(task):
+    bi, chunk = task
+    samples = [_WORKER_DATASET[i] for i in chunk]
+    return (bi, detection_collate(samples, _WORKER_MAX_GT),
+            truncation_stats(samples, _WORKER_MAX_GT))
+
+
+class DetectionLoader:
+    """Batch loader over a map-style dataset.
+
+    ``num_workers > 0`` loads in a fork pool (capped at the cores less one;
+    on a host of at most 2 cores it loads inline); ``num_workers = 0`` loads
+    inline. Shuffling is ``random.Random(seed + epoch)``; with
+    ``num_shards > 1`` each shard takes its interleaved slice of the same
+    permutation (one process's share, for data parallelism).
+    """
+
+    def __init__(self, dataset, batch_size: int, max_gt: int, shuffle: bool,
+                 drop_last: bool, num_workers: int = 4, seed: int = 0,
+                 shard_id: int = 0, num_shards: int = 1):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.max_gt = max_gt
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") else (
+            os.cpu_count() or 1)
+        self.num_workers = 0 if cores <= 2 else min(max(0, num_workers), cores - 1)
+        self.seed = seed
+        self.epoch = 0
+        self._pool = None
+        self.gt_dropped_last_epoch = 0
+        self.gt_max_seen = 0
+        self._warned_truncation = False
+        self.shard_id = shard_id
+        self.num_shards = max(1, num_shards)
+
+    def _shard_indices(self):
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(idx)
+        if self.num_shards > 1:
+            idx = idx[self.shard_id::self.num_shards]
+        return idx
+
+    def __len__(self):
+        n = len(self.dataset) // self.num_shards
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batch_indices(self):
+        idx = self._shard_indices()
+        batches = []
+        for i in range(0, len(idx), self.batch_size):
+            chunk = idx[i:i + self.batch_size]
+            if len(chunk) < self.batch_size:
+                if self.drop_last:
+                    continue
+                # wrap around (again, for a remainder under half a batch) so
+                # the last eval batch keeps the batch shape
+                while len(chunk) < self.batch_size:
+                    chunk = chunk + chunk[: self.batch_size - len(chunk)]
+            batches.append(chunk)
+        return batches
+
+    def _get_pool(self):
+        if self._pool is None:
+            import multiprocessing as mp
+
+            self._pool = mp.get_context("fork").Pool(
+                self.num_workers, initializer=_worker_init,
+                initargs=(self.dataset, self.max_gt, self.seed))
+        return self._pool
+
+    def _note_truncation(self, dropped: int, max_seen: int):
+        self.gt_dropped_last_epoch += dropped
+        self.gt_max_seen = max(self.gt_max_seen, max_seen)
+
+    def _finish_epoch_accounting(self):
+        """Warn once, at the end of the first epoch that dropped boxes."""
+        if self.gt_dropped_last_epoch and not self._warned_truncation:
+            self._warned_truncation = True
+            print(
+                f"WARNING: DATASET.MAX_GT={self.max_gt} dropped "
+                f"{self.gt_dropped_last_epoch} ground-truth boxes this epoch "
+                f"(max per-image GT seen: {self.gt_max_seen}). Raise "
+                f"DATASET.MAX_GT to >= {self.gt_max_seen} to train on every "
+                "label (the pad is only a fixed-shape batch layout; cost "
+                "is a few KB/image).", file=sys.stderr, flush=True)
+
+    def __iter__(self) -> Iterator[dict]:
+        batches = self._batch_indices()
+        self.epoch += 1
+        self.gt_dropped_last_epoch = 0
+        if self.num_workers == 0:
+            for chunk in batches:
+                samples = [self.dataset[i] for i in chunk]
+                self._note_truncation(*truncation_stats(samples, self.max_gt))
+                yield detection_collate(samples, self.max_gt)
+            self._finish_epoch_accounting()
+            return
+
+        pool = self._get_pool()
+        # results stream back in completion order; a small buffer restores
+        # batch order (bounded by the pool size)
+        results = {}
+        next_bi = 0
+        try:
+            for bi, batch, stats in pool.imap_unordered(_worker_make_batch,
+                                                        list(enumerate(batches))):
+                self._note_truncation(*stats)
+                results[bi] = batch
+                while next_bi in results:
+                    yield results.pop(next_bi)
+                    next_bi += 1
+        except Exception as e:
+            self.close()
+            raise RuntimeError("data worker failed") from e
+        while next_bi < len(batches):
+            yield results.pop(next_bi)
+            next_bi += 1
+        self._finish_epoch_accounting()
+
+    def close(self) -> None:
+        """End the worker processes (a later iteration starts new ones)."""
+        if self._pool is not None:
+            self._pool.terminate()
+            self._pool.join()
+            self._pool = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass  # interpreter teardown
+
+
+def load_data(dataset_cfg, phase: str, image_size=None, batch_size: int = 32) -> DetectionLoader:
+    """The phase's loader (reference ``load_data(cfg.DATASET, phase)``).
+
+    ``phase``: 'train' (TRAIN_SETS, augmentation PROB) or 'eval' / 'test'
+    (TEST_SETS, PROB = -1).
+    """
+    name = dataset_cfg.DATASET
+    if name not in dataset_map:
+        raise KeyError(f"unknown or not yet ported DATASET.DATASET={name!r}")
+    image_size = image_size or [300, 300]
+    means = tuple(dataset_cfg.PIXEL_MEANS)
+    if phase == "train":
+        if bool(dataset_cfg.get("DEVICE_AUG", False)):
+            raise NotImplementedError("DATASET.DEVICE_AUG: device augmentation is not ported")
+        sets, prob, shuffle, drop_last = dataset_cfg.TRAIN_SETS, dataset_cfg.PROB, True, True
+    elif phase in ("eval", "test"):
+        sets, prob, shuffle, drop_last = dataset_cfg.TEST_SETS, -1, False, False
+    else:
+        raise ValueError(f"unknown phase {phase!r}")
+    pre = preproc(image_size, means, prob)
+    dataset = dataset_map[name](dataset_cfg.DATASET_DIR, sets, preproc=pre)
+    return DetectionLoader(
+        dataset, batch_size=batch_size, max_gt=int(dataset_cfg.MAX_GT), shuffle=shuffle,
+        drop_last=drop_last, num_workers=int(dataset_cfg.NUM_WORKERS))

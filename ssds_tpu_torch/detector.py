@@ -22,6 +22,7 @@ import time
 import numpy as np
 import torch
 
+from ssds_tpu_torch.checkpoint import load_state_dict_file
 from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
 from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect
 
@@ -45,7 +46,8 @@ class ObjectDetector:
       seed: seeds the random init used when ``RESUME_CHECKPOINT`` is empty.
 
     ``RESUME_CHECKPOINT`` names a ``.pth`` state dict in the port's
-    (reference torch) layout, e.g. one written from JAX parameters by
+    (reference torch) layout: a checkpoint of
+    :mod:`ssds_tpu_torch.checkpoint`, or one written from JAX parameters by
     :func:`ssds_tpu_torch.weights.state_dict_from_jax`.
     """
 
@@ -60,10 +62,7 @@ class ObjectDetector:
         self.dtype = torch.bfloat16 if bool(model_cfg.HALF_PRECISION) else torch.float32
         self.model = init_model(model, seed=seed, device="cpu")
         if cfg.RESUME_CHECKPOINT:
-            sd = torch.load(cfg.RESUME_CHECKPOINT, map_location="cpu", weights_only=True)
-            sd = sd.get("state_dict", sd)
-            sd = {k[7:] if k.startswith("module.") else k: v for k, v in sd.items()}
-            self.model.load_state_dict(sd, strict=True)
+            self.model.load_state_dict(load_state_dict_file(cfg.RESUME_CHECKPOINT), strict=True)
         self.model.to(self.device)
         # flax casts conv params to the compute dtype per call; cast once here.
         # L2Norm keeps its float32 scale (it computes in float32).
@@ -73,16 +72,7 @@ class ObjectDetector:
         self.priors = torch.from_numpy(create_priors(model_cfg, self.feature_maps)).to(self.device)
         self.means = torch.tensor(cfg.DATASET.PIXEL_MEANS, dtype=torch.float32,
                                   device=self.device)
-        self.post = PostProcessConfig(
-            num_classes=int(cfg.POST_PROCESS.NUM_CLASSES),
-            background_label=int(cfg.POST_PROCESS.BACKGROUND_LABEL),
-            score_threshold=float(cfg.POST_PROCESS.SCORE_THRESHOLD),
-            iou_threshold=float(cfg.POST_PROCESS.IOU_THRESHOLD),
-            max_detections=int(cfg.POST_PROCESS.MAX_DETECTIONS),
-            top_k=int(cfg.POST_PROCESS.TOP_K),
-            variance=tuple(cfg.POST_PROCESS.VARIANCE),
-            pre_nms_top_n=int(cfg.POST_PROCESS.get("PRE_NMS_TOP_N", 0)),
-        )
+        self.post = PostProcessConfig.from_cfg(cfg.POST_PROCESS)
 
     @torch.no_grad()
     def forward(self, img_u8: torch.Tensor):

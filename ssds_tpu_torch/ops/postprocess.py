@@ -45,6 +45,20 @@ class PostProcessConfig:
     # selection (0 = off, exact reference semantics).
     pre_nms_top_n: int = 0
 
+    @classmethod
+    def from_cfg(cls, post) -> "PostProcessConfig":
+        """From a ``cfg.POST_PROCESS`` subtree."""
+        return cls(
+            num_classes=int(post.NUM_CLASSES),
+            background_label=int(post.BACKGROUND_LABEL),
+            score_threshold=float(post.SCORE_THRESHOLD),
+            iou_threshold=float(post.IOU_THRESHOLD),
+            max_detections=int(post.MAX_DETECTIONS),
+            top_k=int(post.TOP_K),
+            variance=tuple(post.VARIANCE),
+            pre_nms_top_n=int(post.get("PRE_NMS_TOP_N", 0)),
+        )
+
 
 def _top_k(x: torch.Tensor, k: int):
     """``lax.top_k`` over the last axis: values and indices, ties index-ascending."""

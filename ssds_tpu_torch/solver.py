@@ -1,0 +1,605 @@
+"""Training and evaluation: the Solver (counterpart of :mod:`ssds_tpu.solver`).
+
+Reference ``lib/ssds_train.py``: the ``Solver`` owns the model, priors,
+loss, optimizer, LR schedule, loaders and summary writer; its epoch loop
+trains with warm-up, saves a checkpoint every ``CHECKPOINTS_EPOCHS`` and
+auto-resumes from the newest one; inside ``TEST.TEST_SCOPE`` it evaluates
+loss and mAP; ``TRAINABLE_SCOPE`` freezes parameters; the writer records
+``loss_loc`` / ``loss_conf`` / ``lr``.
+
+A train step here: uint8 images on the device -> minus ``PIXEL_MEANS`` in
+float32 -> the forward under ``torch.autocast`` in bf16 when
+``MODEL.HALF_PRECISION`` (float32 master weights) -> match and MultiBox loss
+in float32 -> backward -> the optimizer, whose updates follow the JAX
+package's optax chains (:func:`configure_optimizer`) with the LR set each
+step from the step-indexed schedule. A step returns device scalars and never
+waits for the device.
+
+Differences from the JAX solver: one process (no DDP yet); SSD heads only
+(the YOLO heads and device augmentation are not ported); no
+``visualize_epoch``. After a resume the port continues the LR schedule from
+the restored step, as ``ssds_tpu/solver.py:366-367`` intends; the JAX
+optimizer restarts its schedule count at 0 (ROADMAP.md §3).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, Iterable, List, Tuple
+
+import numpy as np
+import torch
+
+from ssds_tpu_torch import checkpoint as ckpt_lib
+from ssds_tpu_torch.data.factory import load_data
+from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
+from ssds_tpu_torch.models.heads.common import finalize
+from ssds_tpu_torch.ops.losses import multibox_loss
+from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect
+
+# --------------------------------------------------------------------------
+# LR schedule and optimizer (reference configure_lr_scheduler /
+# configure_optimizer)
+# --------------------------------------------------------------------------
+
+
+def configure_lr_scheduler(train_cfg, steps_per_epoch: int) -> Callable[[int], float]:
+    """Step-indexed LR schedule from ``cfg.TRAIN.LR_SCHEDULER``, with warm-up.
+
+    step / multi_step / exponential / sgdr (cosine with restarts every
+    ``STEPS[0]`` epochs, or once over the run), epoch-granular like the
+    reference, then a linear warm-up over ``WARM_UP_EPOCHS`` applied per step.
+    Computed in float32 with the JAX schedule's operations, so the two agree
+    to float32 rounding.
+    """
+    f32 = np.float32
+    s = train_cfg.LR_SCHEDULER
+    base = f32(train_cfg.OPTIMIZER.LEARNING_RATE)
+    gamma = f32(s.GAMMA)
+    lr_min = f32(s.LR_MIN)
+    spe = f32(max(1, steps_per_epoch))
+    kind = str(s.SCHEDULER)
+    steps = [int(x) for x in (s.STEPS or [])]
+
+    if kind == "step":
+        size = f32(max(1, steps[0] if steps else 1))
+
+        def sched(epoch):
+            return base * gamma ** np.floor(epoch / size)
+    elif kind == "multi_step":
+        bounds = np.asarray(sorted(steps), f32)
+
+        def sched(epoch):
+            return base * gamma ** f32(np.sum(epoch >= bounds))
+    elif kind == "exponential":
+
+        def sched(epoch):
+            return base * gamma ** np.floor(epoch)
+    elif kind == "sgdr":
+        period = f32(steps[0] if steps else int(train_cfg.MAX_EPOCHS))
+        # the JAX schedule forms this product of Python floats in float64
+        half_span = f32(0.5 * (float(train_cfg.OPTIMIZER.LEARNING_RATE) - float(s.LR_MIN)))
+
+        def sched(epoch):
+            t = np.mod(epoch, period) / period
+            return lr_min + half_span * (f32(1.0) + np.cos(f32(np.pi) * t))
+    else:
+        raise ValueError(f"unknown LR_SCHEDULER.SCHEDULER={kind!r}")
+
+    warm_steps = f32(float(s.WARM_UP_EPOCHS) * float(spe))
+
+    def schedule(step: int) -> float:
+        step = f32(step)
+        lr = sched(step / spe)
+        if warm_steps > 0 and step < warm_steps:
+            lr = base * (step + f32(1.0)) / warm_steps
+        return float(lr)
+
+    return schedule
+
+
+def trainable_mask(names: Iterable[str], scope: str) -> Dict[str, str]:
+    """``{name: 'train' | 'freeze'}`` from TRAINABLE_SCOPE (reference
+    ``trainable_param``). A scope that matches nothing trains everything,
+    with a warning when the scope was not empty."""
+    labels = {n: ("train" if ckpt_lib.path_in_scope(n, scope) else "freeze") for n in names}
+    if all(v == "freeze" for v in labels.values()):
+        if str(scope).strip():
+            print(f"warning: TRAINABLE_SCOPE '{scope}' matches no parameter "
+                  "path; training ALL parameters instead", flush=True)
+        labels = {n: "train" for n in labels}
+    return labels
+
+
+class Adam(torch.optim.Optimizer):
+    """optax's ``scale_by_adam(b1, b2, eps)`` then ``add_decayed_weights(wd)``
+    then the LR (AdamW, decoupled decay): ``mu = (1 - b1) g + b1 mu``, ``nu =
+    (1 - b2) g^2 + b2 nu``, ``u = mu_hat / (sqrt(nu_hat) + eps) + wd p``, ``p -=
+    lr u``. The bias corrections ``1 - b^t`` are rounded to float32 as optax
+    rounds them: ``torch.optim.AdamW`` forms them in float64, and at ``b2 =
+    0.999`` the two differ by up to 5e-5 of the update."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        f32 = np.float32
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                if not state:
+                    state["count"] = 0
+                    state["mu"] = torch.zeros_like(p)
+                    state["nu"] = torch.zeros_like(p)
+                state["count"] += 1
+                mu, nu = state["mu"], state["nu"]
+                mu.copy_((1.0 - b1) * g + b1 * mu)
+                nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
+                bc1 = float(f32(1.0) - f32(b1) ** f32(state["count"]))
+                bc2 = float(f32(1.0) - f32(b2) ** f32(state["count"]))
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.sub_(group["lr"] * u)
+
+
+class RMSprop(torch.optim.Optimizer):
+    """optax's ``scale_by_rms(decay=alpha, eps)`` then ``trace(momentum)``:
+    ``nu = (1 - alpha) g^2 + alpha nu``, ``u = g / sqrt(nu + eps)`` (eps inside
+    the root, where ``torch.optim.RMSprop`` adds it outside), ``t = u +
+    momentum t``, ``p -= lr t``; weight decay is added to ``g`` first."""
+
+    def __init__(self, params, lr: float, alpha: float = 0.9, eps: float = 1e-8,
+                 momentum: float = 0.0, weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps, momentum=momentum,
+                                      weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            alpha, eps, momentum = group["alpha"], group["eps"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                    if momentum:
+                        state["trace"] = torch.zeros_like(p)
+                nu = state["nu"]
+                nu.copy_((1.0 - alpha) * (g * g) + alpha * nu)
+                u = torch.rsqrt(nu + eps) * g
+                if momentum:
+                    u = state["trace"].copy_(u + momentum * state["trace"])
+                p.sub_(group["lr"] * u)
+
+
+def configure_optimizer(train_cfg, named_params: Iterable[Tuple[str, torch.nn.Parameter]]):
+    """The optimizer of ``cfg.TRAIN.OPTIMIZER`` over ``named_params``, equal to
+    the JAX package's optax chains (``ssds_tpu/solver.py:152-213``):
+
+    - ``sgd``: ``torch.optim.SGD`` (dampening 0, no Nesterov, decay added to
+      the gradient) = ``add_decayed_weights -> trace -> lr``;
+    - ``adam``: :class:`Adam` = ``scale_by_adam -> add_decayed_weights -> lr``
+      (AdamW's decoupled decay, optax's float32 bias corrections);
+    - ``rmsprop``: :class:`RMSprop` (decay 0.9, eps inside the root).
+
+    Parameters outside TRAINABLE_SCOPE get ``requires_grad=False`` and stay
+    out of the optimizer (no decay, no momentum: optax's ``set_to_zero``).
+    Each ``DIFFERENTIAL_LEARNING_RATE`` entry ``[scope, mult]`` takes the
+    trainable parameters under its scope that no earlier entry took, into a
+    param group of its own whose ``mult`` scales the LR. The LR itself and
+    ``CLIP_GRADIENT`` are applied per step by :func:`apply_gradients`.
+    """
+    o = train_cfg.OPTIMIZER
+    kind = str(o.OPTIMIZER)
+    wd = float(o.WEIGHT_DECAY)
+    momentum = float(o.MOMENTUM)
+    eps = float(o.get("EPS", 1e-8))
+    named = list(named_params)
+    labels = trainable_mask([n for n, _ in named], str(train_cfg.TRAINABLE_SCOPE))
+    mults = {"train": 1.0}
+    for i, (dscope, mult) in enumerate(o.get("DIFFERENTIAL_LEARNING_RATE") or []):
+        key = f"dlr{i}"
+        mults[key] = float(mult)
+        for n, lab in labels.items():
+            if lab == "train" and ckpt_lib.path_in_scope(n, str(dscope)):
+                labels[n] = key
+    for n, p in named:
+        p.requires_grad_(labels[n] != "freeze")
+    groups = []
+    for key, mult in mults.items():
+        params = [p for n, p in named if labels[n] == key]
+        if params:
+            groups.append({"params": params, "mult": mult, "name": key})
+    lr = float(o.LEARNING_RATE)
+    if kind == "sgd":
+        return torch.optim.SGD(groups, lr=lr, momentum=momentum, dampening=0.0,
+                               nesterov=False, weight_decay=wd)
+    if kind == "adam":
+        return Adam(groups, lr=lr, betas=(0.9, 0.999), eps=eps, weight_decay=wd)
+    if kind == "rmsprop":
+        return RMSprop(groups, lr=lr, alpha=0.9, eps=eps, momentum=momentum, weight_decay=wd)
+    raise ValueError(f"unknown OPTIMIZER.OPTIMIZER={kind!r}")
+
+
+def _clip_by_global_norm(grads: List[torch.Tensor], max_norm: float) -> None:
+    """optax ``clip_by_global_norm`` in place: ``g / norm * max_norm`` where
+    ``norm >= max_norm`` (no epsilon), decided on the device."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    for g in grads:
+        g.copy_(torch.where(norm < max_norm, g, g / norm * max_norm))
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer, lr: float, clip: float = 0.0) -> None:
+    """One update: each group's LR set to ``lr * mult`` (in float32, as the
+    JAX schedule's product), its gradients clipped to ``clip`` by their own
+    global norm (each optax ``multi_transform`` branch clips its own
+    partition), then ``optimizer.step()``."""
+    lr32 = np.float32(lr)
+    for group in optimizer.param_groups:
+        group["lr"] = float(lr32 * np.float32(group["mult"]))
+        if clip > 0:
+            grads = [p.grad for p in group["params"] if p.grad is not None]
+            if grads:
+                _clip_by_global_norm(grads, clip)
+    optimizer.step()
+
+
+def forward_raw(model: torch.nn.Module, images_u8: torch.Tensor, means: torch.Tensor,
+                dtype: torch.dtype):
+    """``[B, H, W, 3]`` uint8 BGR -> raw ``(loc, conf)``: the mean subtracted
+    in float32, the model under autocast in ``dtype`` (bf16) or in float32."""
+    x = (images_u8.float() - means).permute(0, 3, 1, 2).contiguous()
+    if dtype == torch.float32:
+        return model(x, phase="train")
+    with torch.autocast(images_u8.device.type, dtype=dtype):
+        return model(x, phase="train")
+
+
+def build_train_step(model, priors: torch.Tensor, optimizer, lr_schedule, dtype,
+                     pixel_means, clip: float = 0.0):
+    """The per-iteration body: ``train_step(batch, step) -> {"loss", "loss_l",
+    "loss_c"}`` (device scalars). ``batch`` holds ``images`` (uint8 NHWC),
+    ``boxes``, ``labels`` and ``valid`` on the model's device; ``step`` indexes
+    ``lr_schedule``."""
+    means = torch.tensor(tuple(pixel_means), dtype=torch.float32, device=priors.device)
+
+    def train_step(batch, step: int) -> Dict[str, torch.Tensor]:
+        loc, conf = forward_raw(model, batch["images"], means, dtype)
+        loss_l, loss_c = multibox_loss(loc, conf, batch["boxes"], batch["labels"],
+                                       batch["valid"], priors)
+        loss = loss_l + loss_c
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        apply_gradients(optimizer, lr_schedule(step), clip)
+        return {"loss": loss.detach(), "loss_l": loss_l.detach(), "loss_c": loss_c.detach()}
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# Solver
+# --------------------------------------------------------------------------
+
+
+class Solver:
+    """The train / eval / test lifecycle (reference ``class Solver``).
+
+    Args:
+      cfg: the full config tree.
+      device: where the model trains; ``"cuda"`` raises without a GPU.
+      writer: a summary writer (``add_scalar(tag, value, step)``); when None,
+        ``torch.utils.tensorboard.SummaryWriter`` on ``LOG_DIR`` is made at
+        first use.
+      seed: seeds the model's random init (before any checkpoint is loaded).
+    """
+
+    def __init__(self, cfg, device="cuda", writer=None, seed: int = 0):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Solver: device 'cuda' asked for, but no GPU is available")
+        if "visualize" in cfg.PHASE:
+            raise NotImplementedError("PHASE 'visualize' (visualize_epoch) is not ported yet")
+        model, self.feature_maps = create_model(cfg.MODEL)
+        self.model = init_model(model, seed=seed, device=self.device)
+        self.img_hw = (int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1]))
+        self.priors = torch.from_numpy(create_priors(cfg.MODEL, self.feature_maps)).to(self.device)
+        self.compute_dtype = torch.bfloat16 if bool(cfg.MODEL.HALF_PRECISION) else torch.float32
+        self.means = torch.tensor(tuple(cfg.DATASET.PIXEL_MEANS), dtype=torch.float32,
+                                  device=self.device)
+        self.post_cfg = PostProcessConfig.from_cfg(cfg.POST_PROCESS)
+
+        self.exp_dir = cfg.EXP_DIR
+        self.prefix = cfg.CHECKPOINTS_PREFIX
+        os.makedirs(self.exp_dir, exist_ok=True)
+        self.writer = writer
+        self._own_writer = False
+        self.start_epoch = 0
+        self.max_epochs = int(cfg.TRAIN.MAX_EPOCHS)
+        self.phases = list(cfg.PHASE)
+        self.loaders = {}
+        self.optimizer = None
+        self.lr_schedule = None
+        self.step = 0
+        self._train_step = None
+        self._checkpointer = None
+
+    # -- data ---------------------------------------------------------------
+
+    def get_loader(self, phase: str):
+        if phase not in self.loaders:
+            bs = int(self.cfg.TRAIN.BATCH_SIZE if phase == "train" else self.cfg.TEST.BATCH_SIZE)
+            self.loaders[phase] = load_data(self.cfg.DATASET, phase,
+                                            image_size=self.cfg.MODEL.IMAGE_SIZE, batch_size=bs)
+        return self.loaders[phase]
+
+    def _upload(self, batch, keys=("images", "boxes", "labels", "valid")):
+        """Host arrays to the device: pinned, non-blocking copies on CUDA."""
+        out = {}
+        for k in keys:
+            t = torch.from_numpy(batch[k])
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
+
+    # -- state / resume -------------------------------------------------------
+
+    def build_state(self, steps_per_epoch: int):
+        """Schedule and optimizer; the step counter continues from the
+        restored epoch, so the schedule (warm-up included) does too."""
+        self.lr_schedule = configure_lr_scheduler(self.cfg.TRAIN, steps_per_epoch)
+        self.optimizer = configure_optimizer(self.cfg.TRAIN, self.model.named_parameters())
+        self.step = self.start_epoch * steps_per_epoch
+
+    def restore(self):
+        """Auto-resume from the manifest's newest checkpoint, else graft
+        ``RESUME_CHECKPOINT`` under ``TRAIN.RESUME_SCOPE`` (reference
+        ``find_previous`` / ``resume_checkpoint``)."""
+        previous = ckpt_lib.find_previous(self.exp_dir)
+        if previous:
+            epochs, paths = previous
+            self.start_epoch = epochs[-1]
+            sd = ckpt_lib.resume_checkpoint(self.model.state_dict(), paths[-1], "")
+        elif self.cfg.RESUME_CHECKPOINT:
+            sd = ckpt_lib.resume_checkpoint(self.model.state_dict(), self.cfg.RESUME_CHECKPOINT,
+                                            str(self.cfg.TRAIN.RESUME_SCOPE))
+        else:
+            return
+        self.model.load_state_dict(sd)
+
+    def save(self, epoch: int):
+        if self._checkpointer is None:
+            self._checkpointer = ckpt_lib.AsyncCheckpointer()
+        self._checkpointer.save(self.exp_dir, self.prefix, epoch, self.model.state_dict())
+
+    # -- steps ----------------------------------------------------------------
+
+    def make_train_step(self):
+        return build_train_step(self.model, self.priors, self.optimizer, self.lr_schedule,
+                                self.compute_dtype, self.cfg.DATASET.PIXEL_MEANS,
+                                clip=float(self.cfg.TRAIN.OPTIMIZER.get("CLIP_GRADIENT", 0.0) or 0.0))
+
+    def make_eval_step(self):
+        """One forward per batch gives both the eval loss and the detections
+        (reference ``eval_epoch``): ``eval_step(batch) -> (loss_l, loss_c,
+        dets [B, C, max_det, 5])``."""
+
+        @torch.no_grad()
+        def eval_step(batch):
+            loc, conf = forward_raw(self.model, batch["images"], self.means, self.compute_dtype)
+            ll, lc = multibox_loss(loc, conf, batch["boxes"], batch["labels"], batch["valid"],
+                                   self.priors)
+            return ll, lc, detect(*finalize("eval", loc, conf), self.priors, self.post_cfg)
+
+        return eval_step
+
+    def make_eval_forward(self):
+        """``eval_forward(images_u8) -> dets [B, C, max_det, 5]``."""
+
+        @torch.no_grad()
+        def eval_forward(images):
+            loc, conf = forward_raw(self.model, images, self.means, self.compute_dtype)
+            return detect(*finalize("eval", loc, conf), self.priors, self.post_cfg)
+
+        return eval_forward
+
+    # -- epochs ---------------------------------------------------------------
+
+    def _get_writer(self):
+        if self.writer is None:
+            from torch.utils.tensorboard import SummaryWriter
+
+            os.makedirs(self.cfg.LOG_DIR, exist_ok=True)
+            self.writer = SummaryWriter(log_dir=self.cfg.LOG_DIR)
+            self._own_writer = True
+        return self.writer
+
+    def train_model(self):
+        loader = self.get_loader("train")
+        steps_per_epoch = len(loader)
+        self.restore()
+        self.build_state(steps_per_epoch)
+        self._train_step = self.make_train_step()
+        writer = self._get_writer()
+        self.model.train()
+
+        for epoch in range(self.start_epoch + 1, self.max_epochs + 1):
+            t0 = time.time()
+            metrics = self.train_epoch(loader, writer)
+            lr = self.lr_schedule(self.step)
+            print(f"epoch {epoch}/{self.max_epochs} loss_l={metrics['loss_l']:.4f} "
+                  f"loss_c={metrics['loss_c']:.4f} lr={lr:.6f} ({time.time() - t0:.1f}s)",
+                  flush=True)
+            writer.add_scalar("loss_loc", metrics["loss_l"], epoch)
+            writer.add_scalar("loss_conf", metrics["loss_c"], epoch)
+            writer.add_scalar("lr", lr, epoch)
+
+            scope = self.cfg.TEST.TEST_SCOPE
+            if "eval" in self.phases and scope[0] <= epoch <= scope[1]:
+                self.eval_epoch(epoch, writer)
+            if epoch % int(self.cfg.TRAIN.CHECKPOINTS_EPOCHS) == 0 or epoch == self.max_epochs:
+                self.save(epoch)
+        if self._checkpointer is not None:
+            self._checkpointer.wait()  # every checkpoint on disk
+
+    def train_epoch(self, loader, writer=None):
+        """One pass over ``loader``; returns the epoch means of every step's
+        losses. They add up on the device; the host reads them at the first
+        and every 10th step (printing) and at the end."""
+        acc = None
+        n = 0
+        total = len(loader)
+        t0 = time.time()
+        for batch in loader:
+            metrics = self._train_step(self._upload(batch), self.step)
+            self.step += 1
+            acc = metrics if acc is None else {k: acc[k] + v for k, v in metrics.items()}
+            n += 1
+            if n % 10 == 0 or n == 1:
+                m = {k: float(v) for k, v in metrics.items()}
+                if writer is not None:
+                    writer.add_scalar("iter_loss_loc", m["loss_l"], self.step)
+                    writer.add_scalar("iter_loss_conf", m["loss_c"], self.step)
+                if n > 1:
+                    eta = (time.time() - t0) / n * (total - n)
+                    print(f"  iter {n}/{total} loss_l={m['loss_l']:.4f} "
+                          f"loss_c={m['loss_c']:.4f} eta={eta:.0f}s", flush=True)
+        if acc is None:
+            return {"loss": 0.0, "loss_l": 0.0, "loss_c": 0.0}
+        return {k: float(v) / n for k, v in acc.items()}
+
+    def eval_epoch(self, epoch, writer=None):
+        """Loss and mAP over the eval set, from one forward per batch."""
+        mAP, loss_l, loss_c = self._run_detection_eval(self.get_loader("eval"), with_loss=True)
+        print(f"eval epoch {epoch}: loss_l={loss_l:.4f} loss_c={loss_c:.4f} mAP={mAP:.4f}",
+              flush=True)
+        if writer:
+            writer.add_scalar("Eval/loss_loc", loss_l, epoch)
+            writer.add_scalar("Eval/loss_conf", loss_c, epoch)
+            writer.add_scalar("Eval/mAP", mAP, epoch)
+        return mAP
+
+    def _collect_detections(self, loader, with_loss: bool = False):
+        """The eval forward over ``loader``: ``(results, loss_sums)``, results
+        ``{image index: {class: [N, 5] (x1, y1, x2, y2, score) in pixels}}``
+        and loss_sums ``(sum loss_l, sum loss_c, batches)`` when
+        ``with_loss``, both from one pass. The next batch's forward is
+        queued before the previous batch's detections are read back."""
+        step = self.make_eval_step() if with_loss else self.make_eval_forward()
+        num_classes = self.post_cfg.num_classes
+        n_expected = len(loader.dataset)  # the last batch wraps around: skip the repeats
+        loss_acc = []
+
+        def forward_batches():
+            pending = None
+            for batch in loader:
+                if with_loss:
+                    ll, lc, out = step(self._upload(batch))
+                    loss_acc.append((ll, lc))
+                else:
+                    out = step(self._upload(batch, ("images",))["images"])
+                if pending is not None:
+                    yield pending[0].cpu().numpy(), pending[1]
+                pending = (out, batch.get("sizes"))
+            if pending is not None:
+                yield pending[0].cpu().numpy(), pending[1]
+
+        was_training = self.model.training
+        self.model.eval()
+        results = {}
+        img_index = 0
+        try:
+            for dets, sizes in forward_batches():
+                for i in range(dets.shape[0]):
+                    if img_index >= n_expected:
+                        break
+                    h, w = sizes[i] if sizes is not None else self.img_hw
+                    scale = np.array([w, h, w, h], np.float32)
+                    per_cls = {}
+                    for c in range(1, num_classes):
+                        rows = dets[i, c]
+                        keep = rows[:, 0] > 0
+                        if keep.any():
+                            per_cls[c] = np.hstack([rows[keep][:, 1:5] * scale,
+                                                    rows[keep][:, 0:1]]).astype(np.float32)
+                    if per_cls:
+                        results[img_index] = per_cls
+                    img_index += 1
+        finally:
+            self.model.train(was_training)
+        loss_sums = None
+        if with_loss:
+            sums = [0.0, 0.0]
+            if loss_acc:
+                sums = torch.stack([torch.stack(p) for p in loss_acc]).double().sum(0).tolist()
+            loss_sums = (sums[0], sums[1], len(loss_acc))
+        return results, loss_sums
+
+    def _run_detection_eval(self, loader, with_loss: bool = False):
+        """mAP over ``loader``'s dataset through its ``evaluate_detections``;
+        ``(mAP, loss_l, loss_c)`` when ``with_loss``."""
+        dataset = loader.dataset
+        n_images = len(dataset)
+        num_classes = self.post_cfg.num_classes
+        dets, loss_sums = self._collect_detections(loader, with_loss=with_loss)
+        all_boxes = [[[] for _ in range(n_images)] for _ in range(num_classes)]
+        for idx, per_cls in dets.items():
+            for c, arr in per_cls.items():
+                all_boxes[c][idx] = arr
+        mAP = dataset.evaluate_detections(all_boxes, self.exp_dir)
+        if not with_loss:
+            return mAP
+        n = max(1, loss_sums[2])
+        return mAP, loss_sums[0] / n, loss_sums[1] / n
+
+    def test_model(self):
+        """mAP over TEST_SETS; a Solver that has not trained first loads the
+        newest checkpoint (or RESUME_CHECKPOINT)."""
+        if self.optimizer is None:
+            self.restore()
+        mAP = self._run_detection_eval(self.get_loader("test"))
+        print(f"test: mAP={mAP:.4f}", flush=True)
+        return mAP
+
+    def close(self):
+        """Wait for the checkpoint writes, then end the loaders' worker
+        processes, the checkpoint thread and a writer this Solver made."""
+        try:
+            if self._checkpointer is not None:
+                self._checkpointer.close()
+                self._checkpointer = None
+        finally:
+            for loader in self.loaders.values():
+                loader.close()
+            if self._own_writer:
+                self.writer.close()
+
+
+def train_model(cfg, device="cuda"):
+    s = Solver(cfg, device=device)
+    try:
+        s.train_model()
+    finally:
+        s.close()
+    return s
+
+
+def test_model(cfg, device="cuda"):
+    s = Solver(cfg, device=device)
+    try:
+        return s.test_model()
+    finally:
+        s.close()

@@ -2,8 +2,9 @@
 
     python -m ssds_tpu_torch.tools.nms_bench [--iters 200] [--seed 0]
 
-At the serving shapes (:data:`SHAPES`: SSD300's 21 class slots of 200
-candidates at batch 1 and 32) and IoU threshold 0.6, on seeded candidate
+At the shapes of the main paths (:data:`SHAPES`: SSD300's 21 class slots of
+200 candidates at serving batch 1 and 32, and at the eval batch of 64 of
+training) and IoU threshold 0.6, on seeded candidate
 sets (:func:`nms_case`; "full" has every candidate valid, as serving fills
 every slot, "random" has an invalid tail in each slot), it prints for the
 kernel (:func:`ssds_tpu_torch.ops.cuda.nms.nms_mask`):
@@ -35,7 +36,8 @@ from ssds_tpu_torch.ops.nms import NEG_INF, nms_mask_torch
 from ssds_tpu_torch.tools import (F32_OPS_S, card_line, host_us, need_cuda, roofline_ms,
                                   time_cuda, time_cuda_queued)
 
-SHAPES = ((21, 200), (672, 200))  # [21 x batch, top_k] at batch 1 and 32
+# [21 x batch, top_k]: serving at batch 1 and 32, the eval of training at TEST.BATCH_SIZE 64
+SHAPES = ((21, 200), (672, 200), (1344, 200))
 SETS = ("full", "random")
 THRESHOLD = 0.6
 # float32 operations of one IoU test in jaccard's form: 2 min, 2 max, 2 sub,

@@ -1,0 +1,31 @@
+"""Train CLI: ``python -m ssds_tpu_torch.train --cfg <yml> [--device cuda]``.
+
+The port's counterpart of the repository's ``train.py`` (reference
+``python train.py --cfg <yml>``): the config file merged over the defaults,
+then :func:`ssds_tpu_torch.solver.train_model` on ``--device`` (default the
+GPU; ``cpu`` for a run without one).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="Train an ssds_tpu_torch detection network")
+    parser.add_argument("--cfg", dest="config_file", required=True, type=str,
+                        help="YAML config file")
+    parser.add_argument("--device", default="cuda", type=str, help="cuda (default) or cpu")
+    return parser.parse_args(argv)
+
+
+def train(argv=None):
+    args = parse_args(argv)
+    from ssds_tpu_torch.config import cfg_from_file
+    from ssds_tpu_torch.solver import train_model
+
+    train_model(cfg_from_file(args.config_file), device=args.device)
+
+
+if __name__ == "__main__":
+    train()

@@ -15,7 +15,8 @@ flax path                                   port name
 ``head/conf{k}/Conv_0/...``                 ``conf.{k}.{...}``
 =========================================== =========================
 
-Conv kernels go from HWIO to OIHW (``transpose(3, 2, 0, 1)``).
+Conv kernels go from HWIO to OIHW (``transpose(3, 2, 0, 1)``). :func:`port_name`
+gives the name alone, for code that needs the mapping without the arrays.
 """
 
 from __future__ import annotations
@@ -43,6 +44,18 @@ def _flatten(tree: Mapping, prefix: str = ""):
             yield path, v
 
 
+def port_name(path: str) -> str:
+    """The port's state-dict name of a flax param path (``'/'``-joined).
+    Raises on a path no rule maps."""
+    if path == "norm/scale":
+        return "norm.weight"
+    for pattern, name in _RULES:
+        m = pattern.search(path)
+        if m:
+            return f"{name(m)}.{'weight' if path.endswith('kernel') else 'bias'}"
+    raise KeyError(f"state_dict_from_jax: no port name for flax param {path!r}")
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax SSD param tree (numpy or jax leaves) to the port's state dict.
 
@@ -54,18 +67,8 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params):
         arr = np.asarray(leaf, dtype=np.float32)
-        if path == "norm/scale":
-            out["norm.weight"] = torch.from_numpy(arr.copy())
-            continue
-        for pattern, name in _RULES:
-            m = pattern.search(path)
-            if m:
-                if path.endswith("kernel"):
-                    out[f"{name(m)}.weight"] = torch.from_numpy(
-                        np.ascontiguousarray(arr.transpose(3, 2, 0, 1)))
-                else:
-                    out[f"{name(m)}.bias"] = torch.from_numpy(arr.copy())
-                break
-        else:
-            raise KeyError(f"state_dict_from_jax: no port name for flax param {path!r}")
+        name = port_name(path)
+        if path.endswith("kernel"):
+            arr = arr.transpose(3, 2, 0, 1)
+        out[name] = torch.from_numpy(np.array(arr, order="C"))  # a copy, writable
     return out

@@ -360,3 +360,72 @@ def test_cuda_tensors_never_take_the_plain_versions(cuda):
     assert (cuda_conv.conv3x3_rows.launches, cuda_conv.vconv3.launches,
             cuda_stencil.row_stencil.launches,
             cuda_nms.nms_mask.launches) == tuple(c + 1 for c in counts)
+
+
+# -- the training path's matching and hard-negative ranks on the card ---------
+
+def _shared_prior_case(seed, b=8, g=12):
+    """SSD300's priors and padded GT in which GTs repeat (exact duplicates and
+    1-pixel shifts), so several share one best prior, plus an empty image."""
+    from ssds_tpu_torch.models.builder import create_model, create_priors
+
+    cfg = default_config()
+    _, fmaps = create_model(cfg.MODEL)
+    priors = create_priors(cfg.MODEL, fmaps)
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 0.6, (b, g, 2))
+    wh = rng.uniform(0.05, 0.4, (b, g, 2))
+    boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    boxes[:, 1::3] = boxes[:, 0::3][:, :boxes[:, 1::3].shape[1]]            # duplicates
+    boxes[:, 2::3] = boxes[:, 0::3][:, :boxes[:, 2::3].shape[1]] + 1 / 300  # shifted a pixel
+    labels = rng.integers(0, 20, (b, g)).astype(np.int32)
+    valid = np.arange(g)[None, :] < rng.integers(1, g + 1, b)[:, None]
+    valid[3] = False
+    return [torch.from_numpy(a) for a in (boxes, labels, valid, priors)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_matching_on_the_card_equals_cpu_and_repeats(cuda, seed):
+    """The forced match (a scatter_reduce 'amax') and the argmaxes are
+    deterministic on CUDA: the same targets as the CPU, run after run."""
+    from ssds_tpu_torch.ops.matching import match_batch
+
+    case = _shared_prior_case(seed)
+    want_loc, want_conf = match_batch(*case)
+    on_card = [t.to(cuda) for t in case]
+    runs = [match_batch(*on_card) for _ in range(5)]
+    torch.cuda.synchronize()
+    for loc, conf in runs:
+        assert torch.equal(conf, runs[0][1]) and torch.equal(loc, runs[0][0])
+    assert torch.equal(runs[0][1].cpu(), want_conf)
+    torch.testing.assert_close(runs[0][0].cpu(), want_loc, rtol=1e-6, atol=1e-6)
+    assert (want_conf[3] == 0).all() and (want_conf > 0).sum() > 0
+
+
+@pytest.mark.parametrize("levels", [0, 3, 1])
+def test_hard_negative_ranks_on_the_card_equal_cpu_with_ties(cuda, levels):
+    """Stable sorts on CUDA: tied losses rank index-ascending, as on the CPU."""
+    from ssds_tpu_torch.ops.losses import hard_negative_ranks
+
+    rng = np.random.default_rng(levels)
+    x = rng.uniform(0, 5, (32, 8732)).astype(np.float32)
+    if levels:
+        x = np.floor(x * levels / 5).astype(np.float32)
+    x[:, ::7] = 0.0
+    want = hard_negative_ranks(torch.from_numpy(x))
+    runs = [hard_negative_ranks(torch.from_numpy(x).to(cuda)) for _ in range(5)]
+    for r in runs:
+        assert torch.equal(r.cpu(), want)
+
+
+def test_multibox_loss_on_the_card_equals_cpu(cuda):
+    from ssds_tpu_torch.ops.losses import multibox_loss
+
+    boxes, labels, valid, priors = _shared_prior_case(2)
+    rng = np.random.default_rng(3)
+    loc = torch.from_numpy(rng.normal(0, 1, (8, priors.shape[0], 4)).astype(np.float32))
+    conf = torch.from_numpy(rng.normal(0, 2, (8, priors.shape[0], 21)).astype(np.float32))
+    want = multibox_loss(loc, conf, boxes, labels, valid, priors)
+    got = multibox_loss(*(t.to(cuda) for t in (loc, conf, boxes, labels, valid, priors)))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=0)

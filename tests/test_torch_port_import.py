@@ -22,8 +22,9 @@ CHECK = r"""
 import sys
 for m in {mods!r}:
     __import__(m)
-# the GPU machine has no jax, flax, PyYAML or OpenCV: none may load on import
-bad = sorted(m for m in ("jax", "flax", "ssds_tpu", "yaml", "cv2") if m in sys.modules)
+# the GPU machine has no jax, flax, PyYAML, OpenCV or TensorBoard: none may load on import
+bad = sorted(m for m in ("jax", "flax", "ssds_tpu", "yaml", "cv2", "tensorboard", "tensorboardX")
+             if m in sys.modules)
 assert not bad, f"importing the port loaded {{bad}}"
 print("port-import-clean:", len({mods!r}), "modules")
 """
@@ -36,7 +37,13 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.models.builder", "ssds_tpu_torch.ops.cuda.nms",
                    "ssds_tpu_torch.ops.conv", "ssds_tpu_torch.ops.stencil",
                    "ssds_tpu_torch.ops.cuda.conv", "ssds_tpu_torch.ops.cuda.stencil",
-                   "ssds_tpu_torch.tools.conv_bench", "ssds_tpu_torch.tools.conv_probes"):
+                   "ssds_tpu_torch.tools.conv_bench", "ssds_tpu_torch.tools.conv_probes",
+                   "ssds_tpu_torch.ops.matching", "ssds_tpu_torch.ops.losses",
+                   "ssds_tpu_torch.checkpoint", "ssds_tpu_torch.solver",
+                   "ssds_tpu_torch.data.augment", "ssds_tpu_torch.data.voc_eval",
+                   "ssds_tpu_torch.data.voc", "ssds_tpu_torch.data.factory",
+                   "ssds_tpu_torch.train", "ssds_tpu_torch.test",
+                   "ssds_tpu_torch.profile_training", "ssds_tpu_torch.tools.synth_voc"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,
