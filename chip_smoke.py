@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv-prototype and training paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training and SSDLite paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -48,11 +48,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    checkpoint and manifest written; a fresh ``Solver`` resumes at the last
    epoch with the saved weights and ``test_model`` gives a mAP; an
    ``ObjectDetector`` on the checkpoint gives the solver's detect rows; one
-   float32 step on the card against the same step on the CPU; the batch-32
-   train step's time and the batch-64 eval's img/s.
+   float32 step on the card against the same step on the CPU
+   (``tools.step_parity``); the batch-32 train step's time and the batch-64
+   eval's img/s;
+9. SSDLite-MobileNetV2-300 (``experiments/cfgs/ssd_lite_mobilenetv2_train_voc.yml``'s
+   model, SGD and sgdr schedule; VOC, 21 classes, 3000 priors, 60
+   BatchNorms, bf16, seeded random weights): ``Solver.train_model`` for 5
+   epochs at batch 32 over the synthetic VOC with the eval of the last epoch
+   (every loss finite, the running variance of every BatchNorm moved);
+   resume (weights and running statistics equal), ``test_model``,
+   ``ObjectDetector`` on the checkpoint equal to the solver's rows; then that
+   detector serves ``predict`` x3 and ``predict_batch`` at 4 and 32 with the
+   NMS kernel's launches reset before and read after, its detect rows
+   identical with the plain NMS, and a float32 forward on the card against
+   the CPU; one float32 step at batch 8, card against CPU, losses, updates
+   and running statistics; the batch-32 train step, batch-1 ``predict`` p50 /
+   p90 and batch-32 ``predict_batch`` img/s.
 
-Before the last two lines comes ``{"training": {...}}``; the line before the
-last is ``{"kernels": [...]}`` and the last line is
+Before the last lines come ``{"training": {...}}`` and ``{"lite": {...}}``,
+then ``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4
+and 9's serving, ``launches_by_path`` every path), the card's name and power
+limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
 line, the NMS entry's ``ms`` is device time alone (launches queued behind a
 sleep kernel: at a few µs a launch, back-to-back calls time the host); its
@@ -86,16 +102,35 @@ SSD300_PRIORS = 8732
 # orders through the 15 VGG convs, the extras and the heads. Measured on an
 # NVIDIA H100 80GB HBM3: 1.3e-5 on loc (max |loc| 4.5) and 5.1e-6 on conf.
 F32_RTOL, F32_ATOL = 1e-4, 1e-4
-# phase 8: a float32 train step at batch 2, card (TF32 off) against CPU. The
-# losses: rtol 1e-4, as the forward (measured 7.5e-8). Each parameter's
-# update (the LR times the momentum buffer, i.e. gradient plus decay, read
-# before it is rounded into the weights): within 1e-2 of the CPU update's
-# norm. Measured on an NVIDIA H100 80GB HBM3: 1.3e-4 in the median tensor,
-# 2.8e-3 at most (conv5_1, base.24): the backward sums in other orders, and
-# a pre-activation that lands on the other side of 0 sends its gradient
-# down another path through the deep ReLUs.
-STEP_RTOL, UPDATE_RTOL = 1e-4, 1e-2
+# phase 8: a float32 train step at batch 2, card (TF32 off) against CPU
+# (tools.step_parity; the readings under each change that follow are
+# tests/torch_port_step_causes.py's). The losses: rtol 1e-4, as the forward
+# (measured 7.5e-8).
+# Each parameter's update (the LR times the momentum buffer, i.e. gradient plus
+# decay, read before it is rounded into the weights): within 5e-3 of the CPU
+# update's norm. Measured on an NVIDIA H100 80GB HBM3 (700 W): 2.81e-3 at most
+# (conv5_1, base.24), 1.27e-4 in the median tensor, unchanged with the CPU's
+# hard-negative ranks fed to the card and with cudnn.deterministic; with cuDNN
+# off (PyTorch's own im2col and GEMM kernels) 3.5e-4 and 9.5e-7, next to the
+# CPU's own float32 step against float64 (9.7e-5 and 4.5e-7). The cause is
+# cuDNN's float32 convolution algorithms, whose sums differ most from the CPU's
+# in the backward; with benchmark off they are fixed for these shapes, so the
+# bound is the measured gap with a margin.
+STEP_RTOL, UPDATE_RTOL = 1e-4, 5e-3
 TRAIN_EPOCHS, TRAIN_IMAGES, TEST_IMAGES = 20, 64, 32
+# phase 9: SSDLite-MobileNetV2-300
+LITE_PRIORS, LITE_BATCHNORMS, LITE_EPOCHS, LITE_F32_BATCH = 3000, 60, 5, 8
+# Its float32 step at batch 8, card against CPU. Losses: STEP_RTOL (measured
+# 9.3e-7). Updates as the largest error over the model's largest update (a BN
+# bias that feeds another BN has a zero gradient up to rounding, so its own
+# norm is no scale): within 3e-2; measured 1.03e-2 (the stem conv), 8.6e-3 with
+# cuDNN off, and the CPU's own float32 step lies 6.6e-3 from its float64 step:
+# float32 rounding through ~60 train-mode BatchNorms, each dividing by the
+# spread of 8 values at the 1x1 maps. Running statistics (a mean in units of
+# its channel's standard deviation, a variance relative to itself): within
+# 5e-4; measured 4.6e-5, the CPU's float32 2.4e-5 from its float64
+# (tests/torch_port_step_causes.py --model lite --batch 8).
+LITE_UPDATE_TOL, LITE_STATS_RTOL = 3e-2, 5e-4
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -205,38 +240,14 @@ def training_config(root, exp):
     return cfg
 
 
-def one_step_card_against_cpu(cfg, dev, dataset, seed):
-    """One float32 train step at batch 2 on the card and on the CPU from the
-    same weights and batch: ``(loss rel. errors, max update rel. error)``."""
-    from ssds_tpu_torch.data.factory import detection_collate
-    from ssds_tpu_torch.solver import Solver
-
-    cfg32 = copy.deepcopy(cfg)
-    cfg32.MODEL.HALF_PRECISION = False
-    cfg32.TRAIN.BATCH_SIZE = 2
-    batch = detection_collate([dataset[0], dataset[1]], int(cfg.DATASET.MAX_GT))
-    results = []
-    for device in (dev, "cpu"):
-        s = Solver(cfg32, device=device, writer=ScalarWriter(), seed=seed)
-        s.build_state(steps_per_epoch=1)
-        m = s.make_train_step()(s._upload(batch), 0)
-        lr = s.optimizer.param_groups[0]["lr"]
-        updates = {n: (lr * s.optimizer.state[p]["momentum_buffer"]).cpu()
-                   for n, p in s.model.named_parameters()}
-        results.append(({k: float(v) for k, v in m.items()}, updates))
-        del s
-    (mg, ug), (mc, uc) = results
-    loss_err = {k: abs(mg[k] - mc[k]) / abs(mc[k]) for k in ("loss_l", "loss_c")}
-    upd_err = {n: float((ug[n] - uc[n]).norm() / uc[n].norm()) for n in uc if uc[n].norm() > 0}
-    return mg, mc, loss_err, upd_err
-
-
 def check_training(seed, dev, card, log):
     """Phase 8: the training path, end to end; returns the numbers."""
     from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.data.factory import detection_collate
     from ssds_tpu_torch.detector import ObjectDetector
     from ssds_tpu_torch.ops.cuda.nms import nms_mask
     from ssds_tpu_torch.solver import Solver
+    from ssds_tpu_torch.tools import step_parity
     from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
 
     out = {"card": card}
@@ -318,16 +329,7 @@ def check_training(seed, dev, card, log):
 
             # -- times: the batch-32 train step (upload included) and the batch-64 eval
             out["resume_test_deploy_s"] = time.perf_counter() - t_resume
-            host = next(iter(solver.get_loader("train")))
-            step = solver._train_step
-            for _ in range(3):
-                step(solver._upload(host), solver.step)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                step(solver._upload(host), solver.step)
-            torch.cuda.synchronize()
-            out["train_step_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+            out["train_step_ms"] = train_step_ms(solver)
             out["train_img_s"] = 32 / out["train_step_ms"] * 1e3
             ebatch = solver._upload(next(iter(solver.get_loader("eval"))))
             eval_step = solver.make_eval_step()
@@ -350,22 +352,252 @@ def check_training(seed, dev, card, log):
 
         # -- one float32 step, card against CPU
         t0 = time.perf_counter()
-        mg, mc, loss_err, upd_err = one_step_card_against_cpu(
-            cfg, dev, factory.load_data(cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE).dataset, seed)
+        dataset = factory.load_data(cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE).dataset
+        f32 = step_parity.compare(
+            cfg, dev, detection_collate([dataset[0], dataset[1]], int(cfg.DATASET.MAX_GT)), seed)
         out["f32_step_s"] = time.perf_counter() - t0
-    worst = max(upd_err, key=upd_err.get)
-    out["f32_step"] = {"card": mg, "cpu": mc, "loss_rel_err": loss_err,
-                       "update_rel_err_max": upd_err[worst], "update_rel_err_worst": worst,
-                       "loss_rtol": STEP_RTOL, "update_rtol": UPDATE_RTOL}
-    log(f"float32 train step batch 2, card (TF32 off) vs CPU: loss_l {mg['loss_l']:.6f} / "
-        f"{mc['loss_l']:.6f}, loss_c {mg['loss_c']:.6f} / {mc['loss_c']:.6f} (rel "
-        f"{loss_err['loss_l']:.2e} / {loss_err['loss_c']:.2e}); update norm-relative error max "
-        f"{upd_err[worst]:.2e} ({worst}), median {float(np.median(list(upd_err.values()))):.2e}; "
-        f"seconds: train_model {out['train_model_s']:.1f}, resume/test/deploy "
+    f32.update(loss_rtol=STEP_RTOL, update_rtol=UPDATE_RTOL)
+    out["f32_step"] = f32
+    log_f32_step("SSD300-VGG16 batch 2", f32, log)
+    log(f"seconds: train_model {out['train_model_s']:.1f}, resume/test/deploy "
         f"{out['resume_test_deploy_s']:.1f}, float32 step card and CPU {out['f32_step_s']:.1f}")
-    if max(loss_err.values()) > STEP_RTOL or upd_err[worst] > UPDATE_RTOL:
+    if max(f32["loss_rel_err"].values()) > STEP_RTOL or f32["update_rel_err_max"] > UPDATE_RTOL:
         raise AssertionError(f"float32 step card vs CPU outside rtol {STEP_RTOL} / "
-                             f"{UPDATE_RTOL}: {loss_err}, {worst} {upd_err[worst]:.3e}")
+                             f"{UPDATE_RTOL}: {f32}")
+    return out
+
+
+def log_f32_step(what, r, log):
+    mg, mc, err = r["card"], r["cpu"], r["loss_rel_err"]
+    stats = (f"; running statistics max {r['stats_rel_err_max']:.2e} ({r['stats_rel_err_worst']})"
+             f", median {r['stats_rel_err_median']:.2e} (a mean in units of its std, a variance "
+             "relative to itself)"
+             if "stats_rel_err_max" in r else "")
+    log(f"float32 train step {what}, card (TF32 off) vs CPU: loss_l {mg['loss_l']:.6f} / "
+        f"{mc['loss_l']:.6f}, loss_c {mg['loss_c']:.6f} / {mc['loss_c']:.6f} (rel "
+        f"{err['loss_l']:.2e} / {err['loss_c']:.2e}); update norm-relative error max "
+        f"{r['update_rel_err_max']:.2e} ({r['update_rel_err_worst']}), median "
+        f"{r['update_rel_err_median']:.2e}; largest update error over the largest update "
+        f"{r['update_err_over_max_update']:.2e} ({r['update_err_worst']}){stats}")
+
+
+def lite_config(root, exp):
+    """SSDLite-MobileNetV2-300 (``experiments/cfgs/ssd_lite_mobilenetv2_train_voc.yml``'s
+    model, optimizer and sgdr schedule with its 5 warm-up epochs; bf16, batch
+    32) over the synthetic VOC tree, for ``LITE_EPOCHS`` epochs with the eval
+    in the last."""
+    from ssds_tpu_torch.config import ssd_lite_mobilenetv2_config
+
+    lite = ssd_lite_mobilenetv2_config()
+    cfg = training_config(root, exp)
+    cfg.MODEL.update(lite.MODEL)
+    cfg.TRAIN.OPTIMIZER.update(lite.TRAIN.OPTIMIZER)
+    cfg.TRAIN.update(MAX_EPOCHS=LITE_EPOCHS, CHECKPOINTS_EPOCHS=LITE_EPOCHS)
+    cfg.TRAIN.LR_SCHEDULER.update(SCHEDULER="sgdr", WARM_UP_EPOCHS=LITE_EPOCHS)
+    cfg.TEST.TEST_SCOPE = [LITE_EPOCHS, LITE_EPOCHS]
+    cfg.CHECKPOINTS_PREFIX = "ssd_lite_mobilenetv2_voc"
+    return cfg
+
+
+def serve_times(det, img, batch32):
+    """Batch-1 ``predict`` latencies (50 after 10) and batch-32 ``predict_batch``
+    img/s (10 batches after 2)."""
+    for _ in range(10):
+        det.predict(img, threshold=0.01)
+    lat = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        det.predict(img, threshold=0.01)  # synchronises before its device-to-host copy
+        lat.append(time.perf_counter() - t0)
+    for _ in range(2):
+        det.predict_batch(batch32, threshold=0.01)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        det.predict_batch(batch32, threshold=0.01)
+    torch.cuda.synchronize()
+    return lat, 10 * 32 / (time.perf_counter() - t0)
+
+
+def train_step_ms(solver):
+    """The batch-32 train step (upload included), 20 steps after 3, synchronised."""
+    host = next(iter(solver.get_loader("train")))
+    step = solver._train_step
+    for _ in range(3):
+        step(solver._upload(host), solver.step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        step(solver._upload(host), solver.step)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / 20 * 1e3
+
+
+def check_lite(seed, dev, card, log):
+    """Phase 9: SSDLite-MobileNetV2-300 trained, resumed, deployed and served."""
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.data.factory import detection_collate
+    from ssds_tpu_torch.detector import ObjectDetector
+    from ssds_tpu_torch.models.layers import BatchNorm
+    from ssds_tpu_torch.ops import postprocess
+    from ssds_tpu_torch.ops.cuda.nms import nms_mask
+    from ssds_tpu_torch.ops.nms import nms_mask_torch
+    from ssds_tpu_torch.solver import Solver
+    from ssds_tpu_torch.tools import step_parity
+    from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
+
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
+        root, exp = os.path.join(tmp, "VOCdevkit"), os.path.join(tmp, "exp")
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
+        cfg = lite_config(root, exp)
+        writer = ScalarWriter()
+        solver = Solver(cfg, device=dev, writer=writer, seed=seed)
+        bns = [m for m in solver.model.modules() if isinstance(m, BatchNorm)]
+        if solver.priors.shape != (LITE_PRIORS, 4) or len(bns) != LITE_BATCHNORMS:
+            raise AssertionError(f"SSDLite-MobileNetV2-300: {tuple(solver.priors.shape)} priors, "
+                                 f"{len(bns)} BatchNorms")
+        var0 = [m.running_var.clone() for m in bns]
+        resumed = None
+        try:
+            # -- train, with the eval of the last epoch
+            nms_mask.launches = 0
+            t0 = time.perf_counter()
+            solver.train_model()
+            torch.cuda.synchronize()
+            out["train_model_s"] = time.perf_counter() - t0
+            out["nms_launches_eval"] = nms_mask.launches
+            out["epoch_loss"] = [l + c for (_, l), (_, c) in zip(writer.scalars["loss_loc"],
+                                                                 writer.scalars["loss_conf"])]
+            out["eval_map"] = writer.scalars["Eval/mAP"][-1][1]
+            moved = sum(not torch.equal(m.running_var, v) for m, v in zip(bns, var0))
+            out["bn_running_var_moved"] = moved
+            log(f"trained SSDLite-MobileNetV2-300 bf16 batch 32: {len(out['epoch_loss'])} epochs, "
+                f"{solver.step} steps in {out['train_model_s']:.1f} s; epoch mean loss "
+                f"{[round(v, 4) for v in out['epoch_loss']]}; eval mAP {out['eval_map']:.4f}; "
+                f"running variances moved in {moved}/{len(bns)} BatchNorms; nms kernel launches "
+                f"{out['nms_launches_eval']}")
+            if not all(np.isfinite(v) for vals in writer.scalars.values() for _, v in vals):
+                raise AssertionError(f"a loss is not finite: {writer.scalars}")
+            if len(out["epoch_loss"]) != LITE_EPOCHS or moved != len(bns):
+                raise AssertionError(f"{len(out['epoch_loss'])} epochs, {moved} BNs moved")
+            if not (0.0 <= out["eval_map"] <= 1.0 and out["nms_launches_eval"] > 0):
+                raise AssertionError(f"eval: mAP {out['eval_map']}, "
+                                     f"{out['nms_launches_eval']} nms launches")
+            ckpt = os.path.join(exp, f"{cfg.CHECKPOINTS_PREFIX}_epoch_{LITE_EPOCHS}.pth")
+
+            # -- resume, test, deploy
+            resumed = Solver(cfg, device=dev, writer=ScalarWriter(), seed=seed + 1)
+            resumed.train_model()  # auto-resume at the last epoch: no epoch left
+            want = solver.model.state_dict()
+            same = all(torch.equal(v, want[k]) for k, v in resumed.model.state_dict().items())
+            if resumed.start_epoch != LITE_EPOCHS or not same:
+                raise AssertionError(f"resume: epoch {resumed.start_epoch}, state equal {same}")
+            nms_mask.launches = 0
+            out["test_map"] = resumed.test_model()
+            torch.cuda.synchronize()
+            out["nms_launches_test"] = nms_mask.launches
+            if not (0.0 <= out["test_map"] <= 1.0 and out["nms_launches_test"] > 0):
+                raise AssertionError(f"test_model: mAP {out['test_map']}, "
+                                     f"{out['nms_launches_test']} nms launches")
+            dcfg = copy.deepcopy(cfg)
+            dcfg.RESUME_CHECKPOINT = ckpt
+            det = ObjectDetector(dcfg, device=dev)
+            test_set = resumed.get_loader("test").dataset
+            imgs = np.stack([test_set.pull_image(i) for i in range(4)])
+            with torch.no_grad():
+                rows = det.detect_rows(imgs)
+                want_rows = resumed.make_eval_forward()(torch.from_numpy(imgs).to(dev))
+            if not torch.equal(rows, want_rows):
+                raise AssertionError("ObjectDetector on the checkpoint != the solver's eval rows: "
+                                     f"max |d| {(rows - want_rows).abs().max().item():.3e}")
+            log(f"resumed at epoch {resumed.start_epoch} with the saved weights and running "
+                f"statistics; test_model mAP {out['test_map']:.4f} ({out['nms_launches_test']} nms "
+                f"launches); ObjectDetector on {os.path.basename(ckpt)}: detect rows of 4 test "
+                "images identical to the solver's eval forward")
+
+            # -- serve: predict x3, predict_batch at 4 and 32, on the checkpoint
+            rng = np.random.default_rng(seed)
+            hw = det.img_hw
+            singles = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(3)]
+            batch4 = list(rng.integers(0, 256, (4, *hw, 3), dtype=np.uint8))
+            batch32 = list(rng.integers(0, 256, (32, *hw, 3), dtype=np.uint8))
+            nms_mask.launches = 0
+            served = [det.predict(img, threshold=0.01) for img in singles]
+            served += det.predict_batch(batch4, threshold=0.01)
+            served += det.predict_batch(batch32, threshold=0.01)
+            torch.cuda.synchronize()
+            out["nms_launches_serve"] = nms_mask.launches
+            if out["nms_launches_serve"] <= 0:
+                raise AssertionError("serving SSDLite never launched the NMS kernel")
+            for boxes, labels, scores in served:
+                assert boxes.shape == (len(labels), 4) and len(scores) == len(labels)
+                assert np.isfinite(boxes).all() and np.isfinite(scores).all()
+                assert ((labels >= 0) & (labels < 20)).all()
+            for name, group in (("batch 1", singles[:1]), ("batch 32", batch32)):
+                x = torch.from_numpy(np.stack(group)).to(dev)
+                with torch.no_grad():
+                    loc, conf = det.forward(x)
+                    rows = postprocess.detect(loc, conf, det.priors, det.post)
+                    with mock.patch.object(postprocess, "nms_mask", nms_mask_torch):
+                        plain_rows = postprocess.detect(loc, conf, det.priors, det.post)
+                assert rows.shape == (len(group), 21, 100, 5) and torch.isfinite(rows).all()
+                if not torch.equal(rows, plain_rows):
+                    raise AssertionError(f"SSDLite {name}: detect rows with the kernel != plain")
+            log(f"served SSDLite-MobileNetV2-300 bf16: predict x3, predict_batch x4 and x32 "
+                f"({sum(len(s[2]) for s in served)} detections at threshold 0.01), nms kernel "
+                f"launches {out['nms_launches_serve']}; detect rows identical with kernel and "
+                "plain NMS at batch 1 and 32")
+
+            # float32 forward on the card (TF32 off) against the CPU, checkpoint weights
+            cfg32 = copy.deepcopy(dcfg)
+            cfg32.MODEL.HALF_PRECISION = False
+            x = torch.from_numpy(np.stack(singles[:2]))
+            with torch.no_grad():
+                det32 = ObjectDetector(cfg32, device=dev)
+                gpu_loc, gpu_conf = (a.cpu() for a in det32.forward(x.to(dev)))
+                del det32
+                cpu_loc, cpu_conf = ObjectDetector(cfg32, device="cpu").forward(x)
+            out["f32_loc_max_abs_err"] = (gpu_loc - cpu_loc).abs().max().item()
+            out["f32_conf_max_abs_err"] = (gpu_conf - cpu_conf).abs().max().item()
+            log(f"SSDLite float32 forward, card vs CPU: loc max|d| {out['f32_loc_max_abs_err']:.3e}"
+                f" (max|loc| {cpu_loc.abs().max().item():.3e}), conf max|d| "
+                f"{out['f32_conf_max_abs_err']:.3e}")
+            torch.testing.assert_close(gpu_loc, cpu_loc, rtol=F32_RTOL, atol=F32_ATOL)
+            torch.testing.assert_close(gpu_conf, cpu_conf, rtol=F32_RTOL, atol=F32_ATOL)
+
+            # -- times
+            out["train_step_ms"] = train_step_ms(solver)
+            out["train_img_s"] = 32 / out["train_step_ms"] * 1e3
+            lat, out["predict_batch32_img_s"] = serve_times(det, singles[0], batch32)
+            out["predict_b1_p50_ms"] = float(np.percentile(lat, 50)) * 1e3
+            out["predict_b1_p90_ms"] = float(np.percentile(lat, 90)) * 1e3
+            log(f"SSDLite-MobileNetV2-300 bf16: train step batch 32 (20 steps after 3 warm-up, "
+                f"upload included) {out['train_step_ms']:.3f} ms, {out['train_img_s']:.1f} img/s; "
+                f"batch-1 predict p50 {out['predict_b1_p50_ms']:.3f} ms, p90 "
+                f"{out['predict_b1_p90_ms']:.3f} ms (50 requests); batch-32 predict_batch "
+                f"{out['predict_batch32_img_s']:.1f} img/s (10 batches) ({card})")
+            del det
+        finally:
+            solver.close()
+            if resumed is not None:
+                resumed.close()
+
+        # -- one float32 step, card against CPU: losses, updates, running statistics
+        t0 = time.perf_counter()
+        dataset = factory.load_data(cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE).dataset
+        f32 = step_parity.compare(cfg, dev, detection_collate(
+            [dataset[i] for i in range(LITE_F32_BATCH)], int(cfg.DATASET.MAX_GT)), seed)
+        out["f32_step_s"] = time.perf_counter() - t0
+    f32.update(loss_rtol=STEP_RTOL, update_tol=LITE_UPDATE_TOL, stats_rtol=LITE_STATS_RTOL)
+    out["f32_step"] = f32
+    log_f32_step(f"SSDLite-MobileNetV2-300 batch {LITE_F32_BATCH}", f32, log)
+    if (max(f32["loss_rel_err"].values()) > STEP_RTOL
+            or f32["update_err_over_max_update"] > LITE_UPDATE_TOL
+            or f32["stats_rel_err_max"] > LITE_STATS_RTOL):
+        raise AssertionError(f"SSDLite float32 step card vs CPU outside {STEP_RTOL} / "
+                             f"{LITE_UPDATE_TOL} / {LITE_STATS_RTOL}: {f32}")
     return out
 
 
@@ -477,27 +709,11 @@ def main(argv=None):
     nms_times = nms_bench.run(sets=("full",), seed=args.seed, log=log)["cases"]
     report["nms_bench"] = nms_times
 
-    img = singles[0]
-    for _ in range(10):
-        det.predict(img, threshold=0.01)
-    lat = []
-    for _ in range(50):
-        t0 = time.perf_counter()
-        det.predict(img, threshold=0.01)  # synchronises before its device-to-host copy
-        lat.append(time.perf_counter() - t0)
+    lat, ips = serve_times(det, singles[0], batch32)
     p50 = float(np.percentile(lat, 50)) * 1e3
-    for _ in range(2):
-        det.predict_batch(batch32, threshold=0.01)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reps = 10
-    for _ in range(reps):
-        det.predict_batch(batch32, threshold=0.01)
-    torch.cuda.synchronize()
-    ips = reps * 32 / (time.perf_counter() - t0)
     log(f"serving SSD300-VGG16 bf16: batch-1 predict p50 {p50:.3f} ms "
         f"(p90 {float(np.percentile(lat, 90)) * 1e3:.3f} ms, 50 requests); batch-32 "
-        f"predict_batch {ips:.1f} img/s ({reps} batches) ({card})")
+        f"predict_batch {ips:.1f} img/s (10 batches) ({card})")
     report.update(predict_b1_p50_ms=p50, predict_b1_lat_ms=[t * 1e3 for t in lat],
                   predict_batch32_img_s=ips, nms_launches_main_path=launches,
                   nms_max_abs_err=nms_err)
@@ -533,6 +749,10 @@ def main(argv=None):
     # -- 8. the training path -------------------------------------------------
     training = check_training(args.seed, dev, card, log)
     report["training"] = training
+
+    # -- 9. SSDLite-MobileNetV2-300: train, resume, deploy, serve ---------------
+    lite = check_lite(args.seed, dev, card, log)
+    report["lite"] = lite
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -545,15 +765,26 @@ def main(argv=None):
     log(json.dumps({"training": {k: training[k] for k in (
         "epoch_loss", "steps", "eval_map", "test_map", "nms_launches_eval", "nms_launches_test",
         "train_step_ms", "train_img_s", "eval_img_s", "train_model_s", "f32_step", "card")}}))
+    log(json.dumps({"lite": {k: lite[k] for k in (
+        "epoch_loss", "eval_map", "test_map", "nms_launches_eval", "nms_launches_test",
+        "nms_launches_serve", "bn_running_var_moved", "train_step_ms", "train_img_s",
+        "predict_b1_p50_ms", "predict_b1_p90_ms", "predict_batch32_img_s", "f32_loc_max_abs_err",
+        "f32_conf_max_abs_err", "f32_step", "card")}}))
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
-        "replaces": "ssds_tpu/ops/pallas/nms.py:55", "launches": launches,
+        "replaces": "ssds_tpu/ops/pallas/nms.py:55",
+        "launches": launches + lite["nms_launches_serve"],
+        "launches_by_path": {"ssd300_vgg16_serve": launches,
+                             "ssd_lite_mobilenetv2_serve": lite["nms_launches_serve"],
+                             "ssd300_vgg16_train": training["nms_launches_eval"]
+                             + training["nms_launches_test"],
+                             "ssd_lite_mobilenetv2_train": lite["nms_launches_eval"]
+                             + lite["nms_launches_test"]},
         "max_abs_err": nms_err, "ms": min(b32["kernel_ms"]), "plain_ms": min(b32["plain_ms"]),
         "bound_ms": b32["bound"]["ms"], "bound_by": b32["bound"]["by"], "library_ms": None,
         "shape": [672, 200], "wrapper_ms": min(b32["wrapper_ms"]),
         "ms_21x200": min(b1["kernel_ms"]), "plain_ms_21x200": min(b1["plain_ms"]),
         "bound_ms_21x200": b1["bound"]["ms"], "wrapper_ms_21x200": min(b1["wrapper_ms"]),
-        "launches_training": training["nms_launches_eval"] + training["nms_launches_test"],
         "ms_1344x200": min(b64["kernel_ms"]), "plain_ms_1344x200": min(b64["plain_ms"]),
         "bound_ms_1344x200": b64["bound"]["ms"], "wrapper_ms_1344x200": min(b64["wrapper_ms"]),
     }, {

@@ -119,6 +119,26 @@ def default_config() -> AttrDict:
     )
 
 
+def ssd_lite_mobilenetv2_config() -> AttrDict:
+    """``experiments/cfgs/ssd_lite_mobilenetv2_train_voc.yml`` (SSDLite-MobileNetV2-300
+    on VOC07+12) over the defaults, written out for machines without PyYAML.
+    ``tests/test_torch_port_lite_solver.py`` holds it equal to the file."""
+    cfg = default_config()
+    cfg.MODEL.update(SSDS="ssd_lite", NETS="mobilenet_v2",
+                     FEATURE_LAYER=[[13, 18, "S", "S", "S", "S"], [96, 1280, 512, 256, 256, 128]],
+                     ASPECT_RATIOS=[[2, 3]] * 6)
+    cfg.TRAIN.update(BATCH_SIZE=64, TRAINABLE_SCOPE="base,norm,extras,loc,conf",
+                     RESUME_SCOPE="base")
+    cfg.TRAIN.OPTIMIZER.update(LEARNING_RATE=0.01, WEIGHT_DECAY=4e-5)
+    cfg.TRAIN.LR_SCHEDULER.update(SCHEDULER="sgdr", WARM_UP_EPOCHS=5)
+    cfg.TEST.TEST_SCOPE = [290, 300]
+    cfg.DATASET.DATASET_DIR = "./data/VOCdevkit"
+    cfg.EXP_DIR = "./experiments/models/ssd_lite_mobilenetv2_voc"
+    cfg.LOG_DIR = "./experiments/models/ssd_lite_mobilenetv2_voc/logs"
+    cfg.CHECKPOINTS_PREFIX = "ssd_lite_mobilenetv2_voc"
+    return cfg
+
+
 #: process-global singleton, for reference-API parity
 cfg = default_config()
 

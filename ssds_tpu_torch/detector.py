@@ -65,7 +65,12 @@ class ObjectDetector:
             self.model.load_state_dict(load_state_dict_file(cfg.RESUME_CHECKPOINT), strict=True)
         self.model.to(self.device)
         # flax casts conv params to the compute dtype per call; cast once here.
-        # L2Norm keeps its float32 scale (it computes in float32).
+        # L2Norm keeps its float32 scale (it computes in float32). So does
+        # BatchNorm: flax's nn.BatchNorm(dtype=x.dtype) subtracts its float32
+        # running mean from the bf16 input, which promotes to float32,
+        # normalises in float32 and rounds the result to bf16 once
+        # (ssds_tpu/models/layers.py:597-599); F.batch_norm on a bf16 input
+        # with float32 statistics does the same.
         for m in self.model.modules():
             if isinstance(m, torch.nn.Conv2d):
                 m.to(self.dtype)

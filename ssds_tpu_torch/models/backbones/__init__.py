@@ -1,11 +1,20 @@
 """Backbone zoo: builders returning flat layer-spec lists.
 
 Integer ``FEATURE_LAYER`` entries index into the list, so its layout is the
-API (documented in each module). Only ``vgg16`` is ported so far.
+API (documented in each module). Ported: ``vgg16`` and the eight MobileNets.
 """
 
+from ssds_tpu_torch.models.backbones import mobilenet
 from ssds_tpu_torch.models.backbones.vgg import vgg16
 
 networks_map = {
     "vgg16": vgg16,
+    "mobilenet_v1": mobilenet.mobilenet_v1,
+    "mobilenet_v1_075": mobilenet.mobilenet_v1_075,
+    "mobilenet_v1_050": mobilenet.mobilenet_v1_050,
+    "mobilenet_v1_025": mobilenet.mobilenet_v1_025,
+    "mobilenet_v2": mobilenet.mobilenet_v2,
+    "mobilenet_v2_075": mobilenet.mobilenet_v2_075,
+    "mobilenet_v2_050": mobilenet.mobilenet_v2_050,
+    "mobilenet_v2_025": mobilenet.mobilenet_v2_025,
 }

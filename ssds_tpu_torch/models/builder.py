@@ -23,8 +23,10 @@ from ssds_tpu_torch.ops.anchors import AnchorConfig, generate_anchors, num_ancho
 
 
 def _forward_features_size(model: nn.Module, image_size) -> List[Tuple[int, int]]:
-    """Pyramid ``(H_k, W_k)`` sizes from a forward on the meta device."""
+    """Pyramid ``(H_k, W_k)`` sizes from an eval-mode forward on the meta
+    device (a train-mode BatchNorm refuses the 1x1 maps of a batch of one)."""
     x = torch.empty((1, 3, int(image_size[0]), int(image_size[1])), device="meta")
+    model.eval()
     with torch.no_grad():
         feats = model(x, phase="feature")
     return [(int(f.shape[2]), int(f.shape[3])) for f in feats]
@@ -33,9 +35,9 @@ def _forward_features_size(model: nn.Module, image_size) -> List[Tuple[int, int]
 def create_model(model_cfg) -> Tuple[nn.Module, List[Tuple[int, int]]]:
     """Build ``(model, feature_maps)`` from a ``cfg.MODEL`` subtree.
 
-    The model lies on the ``meta`` device, uninitialised, as the JAX
-    package returns an uninitialised flax module; :func:`init_model` gives
-    it weights on a real device.
+    The model lies on the ``meta`` device, uninitialised and in eval mode, as
+    the JAX package returns an uninitialised flax module; :func:`init_model`
+    gives it weights on a real device.
     """
     if model_cfg.NETS not in networks_map:
         raise KeyError(f"unknown or not yet ported backbone MODEL.NETS={model_cfg.NETS!r}")

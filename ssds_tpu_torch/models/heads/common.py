@@ -6,6 +6,10 @@ The FEATURE_LAYER vocabulary shared by the heads:
 - ``'S'`` — extra block: 1x1 conv (ch//2) then 3x3 stride-2 pad-1 conv (ch);
 - ``''``  — extra block: 1x1 conv (ch//2) then 3x3 pad-0 conv (ch).
 
+The lite heads (``ssd_lite``) make each extra block a 1x1 conv (ch//2, ReLU)
+then a :class:`~ssds_tpu_torch.models.layers.SepConvBNReLU` (ch, ReLU), and
+each predictor a depthwise 3x3 then a pointwise 1x1 conv, both with bias.
+
 Phases (reference ``SSD.forward(x, phase)``): ``'feature'`` returns the
 source maps; ``'train'`` raw ``(loc [B,K,4], conf [B,K,C])``; ``'eval'``
 ``(loc, softmax(conf))`` in float32.
@@ -15,6 +19,10 @@ Module names follow the reference torch layout (``extras.{k}``,
 JAX tree. So extra blocks are flattened into one list of convs, and the
 loc/conf predictors are two separate convs per source where the JAX package
 runs one fused conv over their concatenated kernels (exact by linearity).
+A lite predictor is ``nn.Sequential(depthwise, nn.Identity(), pointwise)``:
+index 1 holds the reference's ReLU6, which the JAX head does not apply
+(``ssds_tpu/models/heads/common.py:117-124``), so the names are
+``loc.{k}.0`` / ``loc.{k}.2`` and the computation is the JAX package's.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ssds_tpu_torch.models.layers import Conv, LayerSpec
+from ssds_tpu_torch.models.layers import Conv, LayerSpec, SepConvBNReLU
 
 
 def split_feature_layer(feature_layer) -> Tuple[List[int], List[Tuple[str, int]]]:
@@ -48,12 +56,27 @@ def conv_extra_spec(kind: str, ch: int) -> Tuple[LayerSpec, LayerSpec]:
             lambda cin: Conv(cin, ch, kernel=3, padding=0, relu=True))
 
 
+def sep_extra_spec(kind: str, ch: int) -> Tuple[LayerSpec, LayerSpec]:
+    """Depthwise-separable extra block of the lite heads ('S' halves the map,
+    '' shrinks it by 2), as its two specs."""
+    stride, padding = (2, 1) if kind == "S" else (1, 0)
+    return (lambda cin: Conv(cin, ch // 2, kernel=1, padding=0, relu=True),
+            lambda cin: SepConvBNReLU(cin, ch, stride=stride, padding=padding))
+
+
+def _predictor(cin: int, cout: int, lite: bool) -> nn.Module:
+    if not lite:
+        return Conv(cin, cout, kernel=3, padding=1)
+    return nn.Sequential(Conv(cin, cin, kernel=3, padding=1, groups=cin), nn.Identity(),
+                         Conv(cin, cout, kernel=1, padding=0))
+
+
 def multibox_layers(source_channels: Sequence[int], num_anchors: Sequence[int],
-                    num_classes: int) -> Tuple[nn.ModuleList, nn.ModuleList]:
-    """Per-source 3x3 pad-1 loc and conf predictor convs (reference ``multibox``)."""
-    loc = [Conv(c, a * 4, kernel=3, padding=1) for c, a in zip(source_channels, num_anchors)]
-    conf = [Conv(c, a * num_classes, kernel=3, padding=1)
-            for c, a in zip(source_channels, num_anchors)]
+                    num_classes: int, lite: bool = False) -> Tuple[nn.ModuleList, nn.ModuleList]:
+    """Per-source loc and conf predictors: 3x3 pad-1 convs (reference
+    ``multibox``), or depthwise 3x3 + pointwise 1x1 when ``lite``."""
+    loc = [_predictor(c, a * 4, lite) for c, a in zip(source_channels, num_anchors)]
+    conf = [_predictor(c, a * num_classes, lite) for c, a in zip(source_channels, num_anchors)]
     return nn.ModuleList(loc), nn.ModuleList(conf)
 
 

@@ -4,7 +4,9 @@ Reference ``lib/modeling/ssds/ssd.py``: run the backbone collecting sources
 at the FEATURE_LAYER indices (L2Norm, scale 20, on the first source), chain
 the extra blocks off the backbone tail (each block's output is a source),
 then per-source 3x3 loc/conf convs. Parameter names are the reference's:
-``base.{i}``, ``norm``, ``extras.{k}``, ``loc.{k}``, ``conf.{k}``.
+``base.{i}``, ``norm``, ``extras.{k}``, ``loc.{k}``, ``conf.{k}``. ``lite``
+gives the SSDLite predictors (:mod:`ssds_tpu_torch.models.heads.ssd_lite`);
+L2Norm still scales the first source, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ssds_tpu_torch.models.layers import L2Norm, LayerSpec, build_layers
 class SSD(nn.Module):
     def __init__(self, base: Sequence[LayerSpec], extras: Sequence[Tuple[LayerSpec, ...]],
                  taps: Sequence[int], num_anchors: Sequence[int], num_classes: int,
-                 in_channels: int = 3):
+                 in_channels: int = 3, lite: bool = False):
         super().__init__()
         self.taps = tuple(taps)
         self.num_classes = num_classes
@@ -34,7 +36,7 @@ class SSD(nn.Module):
         self.extra_blocks = tuple(len(block) for block in extras)
         ends = [sum(self.extra_blocks[:i + 1]) - 1 for i in range(len(self.extra_blocks))]
         source_channels += [extra_widths[e] for e in ends]
-        self.loc, self.conf = multibox_layers(source_channels, num_anchors, num_classes)
+        self.loc, self.conf = multibox_layers(source_channels, num_anchors, num_classes, lite)
 
     def forward(self, x: torch.Tensor, phase: str = "train"):
         """``x``: ``[B, 3, H, W]`` mean-subtracted image (NCHW)."""

@@ -9,6 +9,11 @@ JAX package's specs take no argument because flax infers input widths; torch
 layers need them). :func:`build_layers` instantiates a spec list and tracks
 the channel count through modules that have an ``out_channels``.
 
+The BatchNorm blocks (``ConvBNReLU``, ``SepConvBNReLU``, ``InvertedResidual``)
+are flat ``nn.Sequential`` stacks of (conv, BN, activation) entries, so their
+state-dict names are those of the reference's ``conv_bn`` / ``conv_dw`` /
+``InvertedResidual.conv`` (``tests/ref_torch_skeletons.py``).
+
 Only the plain float paths are ported; the JAX package's int8 serving and
 space-to-depth stem wait (ROADMAP.md).
 """
@@ -31,6 +36,11 @@ _TRUNC_STD = 0.87962566103423978
 
 class ReLU(nn.ReLU):
     """``max(x, 0)`` (the JAX package's output-keyed VJP is a TPU memory trick)."""
+
+
+class ReLU6(nn.ReLU6):
+    """``min(max(x, 0), 6)``; the gradient passes where ``0 < x < 6``, as the
+    JAX package's ``relu6`` VJP (``ssds_tpu/models/layers.py:54-68``)."""
 
 
 class MaxPool(nn.MaxPool2d):
@@ -89,6 +99,97 @@ class L2Norm(nn.Module):
         return (xf / norm * self.weight.float()[None, :, None, None]).to(x.dtype)
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` under torch's names.
+
+    Train mode normalises with the batch's biased statistics, as both
+    frameworks do, and blends them into the running buffers the flax way:
+    ``running = 0.9 running + 0.1 batch``, with the BIASED batch variance
+    (``torch.nn.BatchNorm2d`` blends the unbiased one, n/(n-1) larger).
+    Eval mode normalises with the running buffers. Either way the statistics
+    and the normalisation are float32 and the output takes the input's dtype
+    (bf16 under autocast and in bf16 serving), as flax's ``dtype=x.dtype``
+    BatchNorm computes. ``num_batches_tracked`` counts train-mode calls and
+    is read by nothing: the momentum is fixed. A train-mode input with one
+    value a channel raises here (``F.batch_norm``), where flax gives the bias.
+    """
+
+    def __init__(self, channels: int):
+        super().__init__(channels, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        # momentum 1 writes the batch's own statistics into the scratch
+        # vectors: the mean, and the variance unbiased, as torch keeps it
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * ((n - 1) / n) * var)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+_ACTIVATIONS = {"relu": ReLU, "relu6": ReLU6}
+
+
+class ConvBNReLU(nn.Sequential):
+    """conv (no bias) -> :class:`BatchNorm` -> activation, as entries 0, 1, 2
+    (``act`` relu / relu6; ``none`` leaves entry 2 out). Reference
+    ``conv_bn``; ``ssds_tpu/models/layers.py:543``."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
+                 padding: int = 1, groups: int = 1, act: str = "relu"):
+        layers = [Conv(in_channels, features, kernel, stride=stride, padding=padding,
+                       groups=groups, use_bias=False), BatchNorm(features)]
+        if act != "none":
+            layers.append(_ACTIVATIONS[act]())
+        super().__init__(*layers)
+        self.out_channels = features
+
+
+class SepConvBNReLU(nn.Sequential):
+    """Depthwise-separable conv: a depthwise ``expand_kernel`` conv, BN, act,
+    then a 1x1 conv, BN, act, as one flat stack (entries 0-5). Reference
+    ``conv_dw``; ``ssds_tpu/models/layers.py:609``."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1, padding: int = 1,
+                 act: str = "relu", expand_kernel: int = 3):
+        super().__init__(
+            *ConvBNReLU(in_channels, in_channels, expand_kernel, stride=stride, padding=padding,
+                        groups=in_channels, act=act),
+            *ConvBNReLU(in_channels, features, 1, padding=0, act=act))
+        self.out_channels = features
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV2 block: 1x1 expand (relu6; none when ``expand_ratio`` is 1),
+    3x3 depthwise (stride, relu6), 1x1 linear projection, plus the input when
+    the stride is 1 and the widths agree. The stack is ``.conv``, as in the
+    reference; ``ssds_tpu/models/layers.py:633``."""
+
+    def __init__(self, in_channels: int, features: int, stride: int = 1, expand_ratio: int = 6):
+        super().__init__()
+        hidden = int(round(in_channels * expand_ratio))
+        layers = []
+        if expand_ratio != 1:
+            layers += ConvBNReLU(in_channels, hidden, 1, padding=0, act="relu6")
+        layers += ConvBNReLU(hidden, hidden, 3, stride=stride, padding=1, groups=hidden,
+                             act="relu6")
+        layers += ConvBNReLU(hidden, features, 1, padding=0, act="none")
+        self.conv = nn.Sequential(*layers)
+        self.residual = stride == 1 and in_channels == features
+        self.out_channels = features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x)
+        return y + x if self.residual else y
+
+
 def build_layers(specs: Sequence[LayerSpec],
                  in_channels: int) -> Tuple[nn.ModuleList, List[int]]:
     """Instantiate a spec list; returns the modules and each one's output width."""
@@ -109,3 +210,5 @@ def init_flax_defaults(model: nn.Module, generator: torch.Generator) -> None:
             m.init_lecun(generator)
         elif isinstance(m, L2Norm):
             m.weight.fill_(m.scale_init)
+        elif isinstance(m, BatchNorm):
+            m.reset_parameters()  # scale 1, bias 0, mean 0, var 1, as flax's

@@ -2,7 +2,7 @@
 
 For each batch size (default 1 and 32) it serves seeded random uint8 images
 through :class:`~ssds_tpu_torch.detector.ObjectDetector` on the default
-SSD300-VGG16 config and reports:
+SSD300-VGG16 config (``--model lite``: SSDLite-MobileNetV2-300) and reports:
 
 - stage times (CUDA events, mean of ``--iters`` after warm-up): host-to-device
   upload, the conv forward (mean subtraction to softmax), ``detect``, the
@@ -89,6 +89,7 @@ def profile_batch(det, batch, iters, seed):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("vgg", "lite"), default="vgg")
     parser.add_argument("--batches", default="1,32")
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
@@ -97,10 +98,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a GPU (torch.cuda.is_available() is False)")
 
-    from ssds_tpu_torch.config import default_config
+    from ssds_tpu_torch.config import default_config, ssd_lite_mobilenetv2_config
     from ssds_tpu_torch.detector import ObjectDetector
 
-    det = ObjectDetector(default_config(), device="cuda", seed=args.seed)
+    cfg = default_config()
+    if args.model == "lite":
+        cfg.MODEL.update(ssd_lite_mobilenetv2_config().MODEL)
+    det = ObjectDetector(cfg, device="cuda", seed=args.seed)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     results = []
@@ -108,7 +112,7 @@ def main(argv=None):
         r = profile_batch(det, b, args.iters, args.seed)
         results.append(r)
         s = r["stages"]
-        print(f"batch {b} ({card}): " + ", ".join(f"{k} {v:.3f}" for k, v in s.items())
+        print(f"{args.model} batch {b} ({card}): " + ", ".join(f"{k} {v:.3f}" for k, v in s.items())
               + f"; device busy <= {r['device_busy_share_upper_bound']:.3f}, "
               f"{r['device_ms_per_call']:.3f} device-ms per predict_batch", flush=True)
         for k in r["top_kernels"][:10]:

@@ -2,7 +2,8 @@
 
 The training counterpart of :mod:`ssds_tpu_torch.profile_serving` (and of the
 JAX package's ``tools/step_profile.py``). On the default SSD300-VGG16 config
-(bf16 forward, SGD with momentum and weight decay) it runs the train step of
+(bf16 forward, SGD with momentum and weight decay; ``--model lite``:
+SSDLite-MobileNetV2-300 with its yml's SGD) it runs the train step of
 :func:`ssds_tpu_torch.solver.build_train_step` at ``--batch`` (default 32) over
 one batch drawn with :mod:`ssds_tpu_torch.tools.synth_voc` (1-3 GT boxes an
 image), and reports:
@@ -139,6 +140,7 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--model", choices=("vgg", "lite"), default="vgg")
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
@@ -147,12 +149,18 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_training: needs a GPU (torch.cuda.is_available() is False)")
 
-    from ssds_tpu_torch.config import default_config
+    from ssds_tpu_torch.config import default_config, ssd_lite_mobilenetv2_config
     from ssds_tpu_torch.solver import Solver
     from ssds_tpu_torch.tools import card_line
 
     card = card_line()
     cfg = default_config()  # SSD300-VGG16, VOC, bf16 forward, SGD
+    name = "SSD300-VGG16"
+    if args.model == "lite":
+        lite = ssd_lite_mobilenetv2_config()
+        cfg.MODEL.update(lite.MODEL)
+        cfg.TRAIN.OPTIMIZER.update(lite.TRAIN.OPTIMIZER)
+        name = "SSDLite-MobileNetV2-300"
     cfg.TRAIN.BATCH_SIZE = args.batch
     with tempfile.TemporaryDirectory() as exp:
         cfg.EXP_DIR = exp
@@ -162,7 +170,7 @@ def main(argv=None):
                             args.seed)
         r = profile_step(solver, batch, args.iters)
     r["card"] = card
-    print(f"train step SSD300-VGG16 bf16 batch {args.batch} ({card}): host "
+    print(f"train step {name} bf16 batch {args.batch} ({card}): host "
           f"{r['step_host_ms_mean']:.3f} ms ({r['img_s']:.1f} img/s); events "
           + ", ".join(f"{k} {v:.3f}" for k, v in r["split_ms"].items())
           + f" (sum {r['split_sum_ms']:.3f}); device busy <= "

@@ -259,10 +259,11 @@ def apply_gradients(optimizer: torch.optim.Optimizer, lr: float, clip: float = 0
 def forward_raw(model: torch.nn.Module, images_u8: torch.Tensor, means: torch.Tensor,
                 dtype: torch.dtype):
     """``[B, H, W, 3]`` uint8 BGR -> raw ``(loc, conf)``: the mean subtracted
-    in float32, the model under autocast in ``dtype`` (bf16) or in float32."""
+    in float32, the model under autocast in ``dtype`` (bf16), or in float32
+    (float64 for a model made ``.double()``)."""
     x = (images_u8.float() - means).permute(0, 3, 1, 2).contiguous()
-    if dtype == torch.float32:
-        return model(x, phase="train")
+    if dtype in (torch.float32, torch.float64):
+        return model(x.to(dtype), phase="train")
     with torch.autocast(images_u8.device.type, dtype=dtype):
         return model(x, phase="train")
 
@@ -270,12 +271,13 @@ def forward_raw(model: torch.nn.Module, images_u8: torch.Tensor, means: torch.Te
 def build_train_step(model, priors: torch.Tensor, optimizer, lr_schedule, dtype,
                      pixel_means, clip: float = 0.0):
     """The per-iteration body: ``train_step(batch, step) -> {"loss", "loss_l",
-    "loss_c"}`` (device scalars). ``batch`` holds ``images`` (uint8 NHWC),
-    ``boxes``, ``labels`` and ``valid`` on the model's device; ``step`` indexes
-    ``lr_schedule``."""
+    "loss_c"}`` (device scalars), the model in train mode. ``batch`` holds
+    ``images`` (uint8 NHWC), ``boxes``, ``labels`` and ``valid`` on the
+    model's device; ``step`` indexes ``lr_schedule``."""
     means = torch.tensor(tuple(pixel_means), dtype=torch.float32, device=priors.device)
 
     def train_step(batch, step: int) -> Dict[str, torch.Tensor]:
+        model.train()  # BatchNorm on batch statistics, as the JAX step's train=True
         loc, conf = forward_raw(model, batch["images"], means, dtype)
         loss_l, loss_c = multibox_loss(loc, conf, batch["boxes"], batch["labels"],
                                        batch["valid"], priors)
@@ -395,10 +397,12 @@ class Solver:
     def make_eval_step(self):
         """One forward per batch gives both the eval loss and the detections
         (reference ``eval_epoch``): ``eval_step(batch) -> (loss_l, loss_c,
-        dets [B, C, max_det, 5])``."""
+        dets [B, C, max_det, 5])``, the model in eval mode (the train step
+        puts it back in train mode)."""
 
         @torch.no_grad()
         def eval_step(batch):
+            self.model.eval()  # BatchNorm on running statistics, as JAX's train=False
             loc, conf = forward_raw(self.model, batch["images"], self.means, self.compute_dtype)
             ll, lc = multibox_loss(loc, conf, batch["boxes"], batch["labels"], batch["valid"],
                                    self.priors)
@@ -411,6 +415,7 @@ class Solver:
 
         @torch.no_grad()
         def eval_forward(images):
+            self.model.eval()
             loc, conf = forward_raw(self.model, images, self.means, self.compute_dtype)
             return detect(*finalize("eval", loc, conf), self.priors, self.post_cfg)
 
@@ -434,7 +439,6 @@ class Solver:
         self.build_state(steps_per_epoch)
         self._train_step = self.make_train_step()
         writer = self._get_writer()
-        self.model.train()
 
         for epoch in range(self.start_epoch + 1, self.max_epochs + 1):
             t0 = time.time()
@@ -517,29 +521,24 @@ class Solver:
             if pending is not None:
                 yield pending[0].cpu().numpy(), pending[1]
 
-        was_training = self.model.training
-        self.model.eval()
         results = {}
         img_index = 0
-        try:
-            for dets, sizes in forward_batches():
-                for i in range(dets.shape[0]):
-                    if img_index >= n_expected:
-                        break
-                    h, w = sizes[i] if sizes is not None else self.img_hw
-                    scale = np.array([w, h, w, h], np.float32)
-                    per_cls = {}
-                    for c in range(1, num_classes):
-                        rows = dets[i, c]
-                        keep = rows[:, 0] > 0
-                        if keep.any():
-                            per_cls[c] = np.hstack([rows[keep][:, 1:5] * scale,
-                                                    rows[keep][:, 0:1]]).astype(np.float32)
-                    if per_cls:
-                        results[img_index] = per_cls
-                    img_index += 1
-        finally:
-            self.model.train(was_training)
+        for dets, sizes in forward_batches():
+            for i in range(dets.shape[0]):
+                if img_index >= n_expected:
+                    break
+                h, w = sizes[i] if sizes is not None else self.img_hw
+                scale = np.array([w, h, w, h], np.float32)
+                per_cls = {}
+                for c in range(1, num_classes):
+                    rows = dets[i, c]
+                    keep = rows[:, 0] > 0
+                    if keep.any():
+                        per_cls[c] = np.hstack([rows[keep][:, 1:5] * scale,
+                                                rows[keep][:, 0:1]]).astype(np.float32)
+                if per_cls:
+                    results[img_index] = per_cls
+                img_index += 1
         loss_sums = None
         if with_loss:
             sums = [0.0, 0.0]

@@ -429,3 +429,74 @@ def test_multibox_loss_on_the_card_equals_cpu(cuda):
     got = multibox_loss(*(t.to(cuda) for t in (loc, conf, boxes, labels, valid, priors)))
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=0)
+
+
+# -- SSDLite-MobileNetV2 with BatchNorm on the card ------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+def test_batchnorm_on_the_card_equals_cpu(cuda, dtype):
+    """The port's flax-style BatchNorm (cuDNN or the native kernel on the
+    card), train then eval mode: the outputs and the updated running
+    statistics equal the CPU's within float32 rounding (rtol 1e-5; a bf16
+    output within one bf16 ulp, 2^-7 of the value at the bottom of its
+    binade, plus atol 1e-5: the two float32 results may round to neighbouring
+    bf16 values)."""
+    from ssds_tpu_torch.models.layers import BatchNorm
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(1.0, 2.0, (8, 24, 19, 19)).astype(np.float32)).to(dtype)
+    layers = []
+    for device in ("cpu", cuda):
+        bn = BatchNorm(24)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 24))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, 24))
+        layers.append(bn.to(device))
+    outs = [[bn.train()(x.to(bn.weight.device)), bn.eval()(x.to(bn.weight.device))]
+            for bn in layers]
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    for want, got in zip(outs[0], outs[1]):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=rtol, atol=1e-5)
+    for name in ("running_mean", "running_var"):
+        torch.testing.assert_close(getattr(layers[1], name).cpu(), getattr(layers[0], name),
+                                   rtol=1e-5, atol=1e-7)
+
+
+def test_ssd_lite_300_forward_on_the_card_equals_cpu(cuda):
+    """SSDLite-MobileNetV2-300 at full width, float32 eval forward with random
+    running statistics, card (TF32 off) against CPU: within rtol / atol 1e-4,
+    the bound ``chip_smoke.py`` holds the VGG16 forward to."""
+    from ssds_tpu_torch.models.builder import create_model, init_model
+    from ssds_tpu_torch.config import ssd_lite_mobilenetv2_config
+
+    cfg = default_config()
+    cfg.MODEL.update(ssd_lite_mobilenetv2_config().MODEL)
+    model = init_model(create_model(cfg.MODEL)[0], seed=3)
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
+    x = np.random.default_rng(3).normal(0, 50, (2, 3, 300, 300)).astype(np.float32)
+    x = torch.from_numpy(x)
+    with torch.no_grad():
+        want = model(x, phase="eval")
+        got = model.to(cuda)(x.to(cuda), phase="eval")
+    assert got[0].shape == (2, 3000, 4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_lite_train_step_on_the_card_equals_cpu(cuda):
+    """One float32 SSDLite-MobileNetV2-300 step at batch 8, card against CPU
+    (``tools.step_parity``): the bounds of ``chip_smoke.py`` phase 9."""
+    import chip_smoke
+    from ssds_tpu_torch.tools import step_parity
+
+    r = step_parity.run("lite", chip_smoke.LITE_F32_BATCH, 0, cuda)
+    assert max(r["loss_rel_err"].values()) <= chip_smoke.STEP_RTOL
+    assert r["update_err_over_max_update"] <= chip_smoke.LITE_UPDATE_TOL
+    assert r["stats_rel_err_max"] <= chip_smoke.LITE_STATS_RTOL
