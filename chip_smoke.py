@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training and SSDLite paths once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite and COCO paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -63,12 +63,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    identical with the plain NMS, and a float32 forward on the card against
    the CPU; one float32 step at batch 8, card against CPU, losses, updates
    and running statistics; the batch-32 train step, batch-1 ``predict`` p50 /
-   p90 and batch-32 ``predict_batch`` img/s.
+   p90 and batch-32 ``predict_batch`` img/s;
+10. SSDLite-MobileNetV2-300 on COCO (``experiments/cfgs/ssd_lite_mobilenetv2_train_coco.yml``
+   as written, ``config.ssd_lite_mobilenetv2_coco_config()``: 81 classes, 3000
+   priors, bf16, batch 64, SGD 0.01, sgdr with its warm-up, ``PROB`` 0.6,
+   ``MAX_GT`` 128, ``TEST.BATCH_SIZE`` 64) over a synthetic COCO tree
+   (``tools.synth_coco``: JSON annotations on disk, 256 ``train2017`` and 128
+   ``val2017`` images of 240-640 x 240-480 drawn in memory): the NMS kernel
+   bit-identical to its plain version at ``[81, 200]`` and ``[5184, 200]``
+   and timed there beside its bound; a train batch at ``PROB`` 0.6 differs
+   from the same images at ``PROB -1`` and called the native crop sampler
+   (``csrc/ssd_augment.cpp``); ``Solver.train_model`` for 3 epochs with the
+   eval of the last through the port's COCOeval (losses finite, AP and AP50
+   in [0, 1], 12 summary lines); resume (weights and running statistics
+   equal), ``test_model``; ``ObjectDetector`` on the checkpoint: ``predict``
+   on a 640x480 image equal to ``detect`` on the resized image, detect rows
+   identical with kernel and plain NMS at batch 1 and 64, ``predict_batch``
+   on 32 images of mixed sizes; the batch-64 train step, the train loader's
+   img/s over an epoch with the native sampler and with the Python loop, the
+   eval's img/s and COCOeval seconds, batch-1 ``predict`` p50 / p90 on the
+   640x480 image and batch-32 ``predict_batch`` img/s on mixed sizes.
 
-Before the last lines come ``{"training": {...}}`` and ``{"lite": {...}}``,
-then ``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4
-and 9's serving, ``launches_by_path`` every path), the card's name and power
-limit, and as the last line
+Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}`` and
+``{"coco": {...}}``, then ``{"kernels": [...]}`` (the NMS entry's
+``launches`` counts phases 4, 9 and 10's serving, ``launches_by_path`` every
+path), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
 line, the NMS entry's ``ms`` is device time alone (launches queued behind a
 sleep kernel: at a few µs a launch, back-to-back calls time the host); its
@@ -131,6 +150,10 @@ LITE_PRIORS, LITE_BATCHNORMS, LITE_EPOCHS, LITE_F32_BATCH = 3000, 60, 5, 8
 # 5e-4; measured 4.6e-5, the CPU's float32 2.4e-5 from its float64
 # (tests/torch_port_step_causes.py --model lite --batch 8).
 LITE_UPDATE_TOL, LITE_STATS_RTOL = 3e-2, 5e-4
+# phase 10: SSDLite-MobileNetV2-300 on COCO (81 classes); the NMS kernel at
+# serving's [81, 200] and the eval's [64 x 81, 200]
+COCO_EPOCHS, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES = 3, 256, 128
+COCO_NMS_SHAPES = [(81, 200), (5184, 200)]
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -145,12 +168,12 @@ def log(*args):
     print(*args, flush=True)
 
 
-def check_nms_kernel(nms_mask, nms_mask_torch, seed):
+def check_nms_kernel(nms_mask, nms_mask_torch, seed, shapes=NMS_SHAPES):
     """Phase 3: kernel == plain on CUDA == plain on CPU, bit for bit."""
     from ssds_tpu_torch.tools.nms_bench import nms_case
 
     cases, max_err = 0, 0.0
-    for m, n in NMS_SHAPES:
+    for m, n in shapes:
         for kind in NMS_SETS:
             boxes, scores = nms_case(np.random.default_rng([seed, m, n, len(kind)]), m, n, kind)
             bc, sc = boxes.to(DEVICE), scores.to(DEVICE)
@@ -169,7 +192,7 @@ def check_nms_kernel(nms_mask, nms_mask_torch, seed):
                                          f"first differing (slot, cand) {bad}")
                 cases += 1
     log(f"nms kernel: {cases} cases bit-identical to the plain version on CUDA and CPU "
-        f"(shapes {NMS_SHAPES}, sets {NMS_SETS}, thresholds {THRESHOLDS}; zero-area boxes in "
+        f"(shapes {shapes}, sets {NMS_SETS}, thresholds {THRESHOLDS}; zero-area boxes in "
         "every set, invalid tails and an all-invalid row in every set but 'full')")
     return max_err
 
@@ -420,7 +443,7 @@ def serve_times(det, img, batch32):
 
 
 def train_step_ms(solver):
-    """The batch-32 train step (upload included), 20 steps after 3, synchronised."""
+    """The train step at the loader's batch (upload included), 20 steps after 3, synchronised."""
     host = next(iter(solver.get_loader("train")))
     step = solver._train_step
     for _ in range(3):
@@ -601,6 +624,261 @@ def check_lite(seed, dev, card, log):
     return out
 
 
+def coco_config(root, exp):
+    """``experiments/cfgs/ssd_lite_mobilenetv2_train_coco.yml`` as written
+    (81 classes, bf16, batch 64, SGD 0.01, sgdr with its 5 warm-up epochs,
+    ``PROB`` 0.6, ``MAX_GT`` 128, ``TEST.BATCH_SIZE`` 64) over the synthetic
+    COCO tree, for ``COCO_EPOCHS`` epochs with the eval in the last."""
+    from ssds_tpu_torch.config import ssd_lite_mobilenetv2_coco_config
+
+    cfg = ssd_lite_mobilenetv2_coco_config()
+    cfg.DATASET.DATASET_DIR = root
+    cfg.TRAIN.update(MAX_EPOCHS=COCO_EPOCHS, CHECKPOINTS_EPOCHS=COCO_EPOCHS)
+    cfg.TEST.TEST_SCOPE = [COCO_EPOCHS, COCO_EPOCHS]
+    cfg.PHASE = ["train", "eval"]
+    cfg.EXP_DIR, cfg.LOG_DIR = exp, os.path.join(exp, "logs")
+    return cfg
+
+
+def loader_img_s(cfg, native_sampler: bool):
+    """The train loader's img/s over one epoch (its worker processes started
+    by an epoch before), with the native crop sampler or its Python loop."""
+    from ssds_tpu_torch.data import native
+    from ssds_tpu_torch.data.factory import load_data
+
+    with mock.patch.object(native, "available", native.available if native_sampler
+                           else (lambda: False)):
+        loader = load_data(cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE, int(cfg.TRAIN.BATCH_SIZE))
+        try:
+            for _ in loader:  # forks the workers
+                pass
+            t0 = time.perf_counter()
+            n = sum(len(b["images"]) for b in loader)
+            return n / (time.perf_counter() - t0), loader.num_workers
+        finally:
+            loader.close()
+
+
+def check_coco(seed, dev, card, log, nms_mask, nms_mask_torch):
+    """Phase 10: SSDLite-MobileNetV2-300 on COCO, trained with the recipe's
+    augmentation, evaluated with the port's COCOeval, resumed, deployed and
+    served on images of any size; the NMS kernel at COCO's shapes."""
+    import random
+
+    from ssds_tpu_torch.data import factory, native
+    from ssds_tpu_torch.data.coco import COCODetection
+    from ssds_tpu_torch.data.image_ops import resize_linear
+    from ssds_tpu_torch.detector import ObjectDetector
+    from ssds_tpu_torch.models.heads.common import finalize
+    from ssds_tpu_torch.models.layers import BatchNorm
+    from ssds_tpu_torch.ops import postprocess
+    from ssds_tpu_torch.solver import Solver, forward_raw
+    from ssds_tpu_torch.tools import nms_bench
+    from ssds_tpu_torch.tools.synth_coco import in_memory_coco, write_coco
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    # -- the NMS kernel at COCO's shapes: bit-identical, then timed beside its bound
+    out["nms_max_abs_err"] = check_nms_kernel(nms_mask, nms_mask_torch, seed, COCO_NMS_SHAPES)
+    nms_times = nms_bench.run(shapes=COCO_NMS_SHAPES, sets=("full",), seed=seed, log=log)
+    out["nms_bench"] = nms_times["cases"]
+
+    evals = []  # (seconds, stats, summary lines, detections) of every COCOeval run
+    evaluate = COCODetection.evaluate_detections
+
+    def timed_evaluate(self, all_boxes, output_dir):
+        t0 = time.perf_counter()
+        ap = evaluate(self, all_boxes, output_dir)
+        evals.append((time.perf_counter() - t0, dict(self.last_stats),
+                      len(self.last_stats.summary_lines()),
+                      sum(len(b) for c in all_boxes[1:] for b in c)))
+        return ap
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(factory.dataset_map, {"coco": in_memory_coco(seed)}), \
+            mock.patch.object(COCODetection, "evaluate_detections", timed_evaluate):
+        root, exp = os.path.join(tmp, "coco"), os.path.join(tmp, "exp")
+        write_coco(root, seed, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES)
+        cfg = coco_config(root, exp)
+        writer = ScalarWriter()
+        solver = Solver(cfg, device=dev, writer=writer, seed=seed)
+        bns = [m for m in solver.model.modules() if isinstance(m, BatchNorm)]
+        if solver.priors.shape != (LITE_PRIORS, 4) or solver.post_cfg.num_classes != 81:
+            raise AssertionError(f"SSDLite-MobileNetV2-300 COCO: {tuple(solver.priors.shape)} "
+                                 f"priors, {solver.post_cfg.num_classes} classes")
+        resumed = None
+        try:
+            # -- augmentation on, through the native sampler
+            train_set = solver.get_loader("train").dataset
+            plain_cfg = copy.deepcopy(cfg)
+            plain_cfg.DATASET.PROB = -1
+            plain_set = factory.load_data(plain_cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE).dataset
+            idx = list(range(16))
+            launches = native.launches
+            random.seed(seed)
+            aug = factory.detection_collate([train_set[i] for i in idx], int(cfg.DATASET.MAX_GT))
+            out["native_sampler_calls"] = native.launches - launches
+            plain = factory.detection_collate([plain_set[i] for i in idx], int(cfg.DATASET.MAX_GT))
+            differ = int(sum(not np.array_equal(a, b) for a, b in zip(aug["images"],
+                                                                      plain["images"])))
+            out["augmented_images_differ"] = differ
+            log(f"COCO train batch of {len(idx)} at PROB {cfg.DATASET.PROB}: {differ} images "
+                f"differ from PROB -1 (sizes {sorted({s for s in map(tuple, aug['sizes'].tolist())})[:4]}"
+                f"...); native sampler {os.path.relpath(native.library_path(), REPO)} called "
+                f"{out['native_sampler_calls']} times")
+            if differ == 0 or out["native_sampler_calls"] == 0:
+                raise AssertionError("augmentation did not change the batch or the native "
+                                     "sampler was not called")
+
+            # -- train, with the eval of the last epoch
+            nms_mask.launches = 0
+            t0 = time.perf_counter()
+            solver.train_model()
+            torch.cuda.synchronize()
+            out["train_model_s"] = time.perf_counter() - t0
+            out["nms_launches_eval"] = nms_mask.launches
+            out["epoch_loss"] = [l + c for (_, l), (_, c) in zip(writer.scalars["loss_loc"],
+                                                                 writer.scalars["loss_conf"])]
+            out["eval_ap"] = writer.scalars["Eval/mAP"][-1][1]
+            out["eval_ap50"] = evals[-1][1]["AP50"]
+            out["eval_cocoeval_s"], out["eval_detections"] = evals[-1][0], evals[-1][3]
+            log(f"trained SSDLite-MobileNetV2-300 COCO bf16 batch {cfg.TRAIN.BATCH_SIZE} at PROB "
+                f"{cfg.DATASET.PROB}: "
+                f"{len(out['epoch_loss'])} epochs, {solver.step} steps in "
+                f"{out['train_model_s']:.1f} s; epoch mean loss "
+                f"{[round(v, 4) for v in out['epoch_loss']]}; eval AP {out['eval_ap']:.4f} AP50 "
+                f"{out['eval_ap50']:.4f} over {out['eval_detections']} detections (COCOeval "
+                f"{out['eval_cocoeval_s']:.2f} s, {evals[-1][2]} summary lines); nms kernel "
+                f"launches {out['nms_launches_eval']}")
+            if not all(np.isfinite(v) for vals in writer.scalars.values() for _, v in vals):
+                raise AssertionError(f"a loss is not finite: {writer.scalars}")
+            if len(out["epoch_loss"]) != COCO_EPOCHS or evals[-1][2] != 12:
+                raise AssertionError(f"{len(out['epoch_loss'])} epochs, {evals[-1][2]} lines")
+            if not (0.0 <= out["eval_ap"] <= 1.0 and 0.0 <= out["eval_ap50"] <= 1.0
+                    and out["nms_launches_eval"] > 0):
+                raise AssertionError(f"eval: AP {out['eval_ap']}, AP50 {out['eval_ap50']}, "
+                                     f"{out['nms_launches_eval']} nms launches")
+            ckpt = os.path.join(exp, f"{cfg.CHECKPOINTS_PREFIX}_epoch_{COCO_EPOCHS}.pth")
+
+            # -- resume, test, deploy
+            resumed = Solver(cfg, device=dev, writer=ScalarWriter(), seed=seed + 1)
+            resumed.train_model()  # auto-resume at the last epoch: no epoch left
+            want = solver.model.state_dict()
+            same = all(torch.equal(v, want[k]) for k, v in resumed.model.state_dict().items())
+            if resumed.start_epoch != COCO_EPOCHS or not same:
+                raise AssertionError(f"resume: epoch {resumed.start_epoch}, state equal {same}")
+            nms_mask.launches = 0
+            out["test_ap"] = resumed.test_model()
+            torch.cuda.synchronize()
+            out["nms_launches_test"] = nms_mask.launches
+            out["test_ap50"], out["test_cocoeval_s"] = evals[-1][1]["AP50"], evals[-1][0]
+            if not (0.0 <= out["test_ap"] <= 1.0 and 0.0 <= out["test_ap50"] <= 1.0
+                    and out["nms_launches_test"] > 0 and evals[-1][2] == 12):
+                raise AssertionError(f"test_model: AP {out['test_ap']}, AP50 {out['test_ap50']}, "
+                                     f"{out['nms_launches_test']} nms launches")
+            log(f"resumed at epoch {resumed.start_epoch} with the saved weights and running "
+                f"statistics of {len(bns)} BatchNorms; test_model AP {out['test_ap']:.4f} AP50 "
+                f"{out['test_ap50']:.4f} (COCOeval {out['test_cocoeval_s']:.2f} s; "
+                f"{out['nms_launches_test']} nms launches)")
+
+            # -- eval throughput: forward, loss and detect at TEST.BATCH_SIZE 64
+            ebatch = solver._upload(next(iter(solver.get_loader("eval"))))
+            eval_step = solver.make_eval_step()
+            for _ in range(2):
+                eval_step(ebatch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                eval_step(ebatch)
+            torch.cuda.synchronize()
+            out["eval_img_s"] = 10 * len(ebatch["images"]) / (time.perf_counter() - t0)
+            # detect rows with the kernel and with the plain NMS at batch 64: [5184, 200]
+            with torch.no_grad():
+                solver.model.eval()
+                loc, conf = finalize("eval", *forward_raw(solver.model, ebatch["images"],
+                                                          solver.means, solver.compute_dtype))
+                rows = postprocess.detect(loc, conf, solver.priors, solver.post_cfg)
+                with mock.patch.object(postprocess, "nms_mask", nms_mask_torch):
+                    plain_rows = postprocess.detect(loc, conf, solver.priors, solver.post_cfg)
+            if rows.shape != (len(ebatch["images"]), 81, 100, 5) or not torch.equal(rows,
+                                                                                     plain_rows):
+                raise AssertionError("COCO batch 64: detect rows with the kernel != plain")
+
+            # -- deploy and serve images of any size
+            dcfg = copy.deepcopy(cfg)
+            dcfg.RESUME_CHECKPOINT = ckpt
+            det = ObjectDetector(dcfg, device=dev)
+            rng = np.random.default_rng(seed)
+            img = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+            nms_mask.launches = 0
+            mixed = [rng.integers(0, 256, (int(h), int(w), 3), dtype=np.uint8)
+                     for h, w in zip(rng.integers(240, 481, 32), rng.integers(240, 641, 32))]
+            boxes, labels, scores = det.predict(img, threshold=0.01)
+            served = det.predict_batch(mixed, threshold=0.01)
+            torch.cuda.synchronize()
+            out["nms_launches_serve"] = nms_mask.launches
+            for b, l, sc in served:
+                assert b.shape == (len(l), 4) and np.isfinite(b).all() and np.isfinite(sc).all()
+                assert ((l >= 0) & (l < 80)).all()
+            # predict's rows against detect on the resized image, kernel and plain NMS
+            x = resize_linear(img, det.img_hw)[None]
+            with torch.no_grad():
+                rows = det.detect_rows(x)
+                loc, conf = det.forward(torch.from_numpy(x).to(dev))
+                with mock.patch.object(postprocess, "nms_mask", nms_mask_torch):
+                    plain_rows = postprocess.detect(loc, conf, det.priors, det.post)
+            rows_np = rows[0].cpu().numpy()
+            cls, slot = np.nonzero(rows_np[..., 0] > 0.01)
+            same_predict = (np.array_equal(labels, cls - 1)
+                            and np.array_equal(scores, rows_np[cls, slot, 0])
+                            and np.array_equal(boxes, rows_np[cls, slot, 1:5]
+                                               * np.float32([640, 480, 640, 480])))
+            if not same_predict or not torch.equal(rows, plain_rows):
+                raise AssertionError(f"predict on 640x480 != detect on the resized image "
+                                     f"({same_predict}) or kernel rows != plain rows")
+            log(f"served SSDLite-MobileNetV2-300 COCO on the checkpoint: predict on a 640x480 "
+                f"image ({len(scores)} detections at 0.01) equal to detect on the resized image, "
+                f"detect rows identical with kernel and plain NMS at batch 1 and "
+                f"{len(ebatch['images'])}; "
+                "predict_batch x32 of mixed sizes; nms kernel launches "
+                f"{out['nms_launches_serve']}")
+
+            # -- times
+            out["train_step_ms"] = train_step_ms(solver)
+            out["train_img_s"] = int(cfg.TRAIN.BATCH_SIZE) / out["train_step_ms"] * 1e3
+            lat, out["predict_batch32_mixed_img_s"] = serve_times(det, img, mixed)
+            out["predict_640x480_b1_p50_ms"] = float(np.percentile(lat, 50)) * 1e3
+            out["predict_640x480_b1_p90_ms"] = float(np.percentile(lat, 90)) * 1e3
+            del det
+        finally:
+            solver.close()
+            if resumed is not None:
+                resumed.close()
+        out["loader_img_s_native"], workers = loader_img_s(cfg, native_sampler=True)
+        out["loader_img_s_python_loop"], _ = loader_img_s(cfg, native_sampler=False)
+    b81, b5184 = (nms_times["cases"][f"{m}x{n}/full"] for m, n in COCO_NMS_SHAPES)
+    out.update(nms_ms_5184x200=min(b5184["kernel_ms"]),
+               nms_plain_ms_5184x200=min(b5184["plain_ms"]),
+               nms_bound_ms_5184x200=b5184["bound"]["ms"], nms_ms_81x200=min(b81["kernel_ms"]),
+               nms_bound_ms_81x200=b81["bound"]["ms"])
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"SSDLite-MobileNetV2-300 COCO bf16: train step batch {cfg.TRAIN.BATCH_SIZE} (20 steps "
+        f"after 3 warm-up, "
+        f"upload included) {out['train_step_ms']:.3f} ms, {out['train_img_s']:.1f} img/s; train "
+        f"loader at PROB 0.6 over one epoch ({workers} workers) {out['loader_img_s_native']:.1f} "
+        f"img/s with the native sampler, {out['loader_img_s_python_loop']:.1f} img/s with the "
+        f"Python loop; eval (forward, loss, detect) at batch {cfg.TEST.BATCH_SIZE} "
+        f"{out['eval_img_s']:.1f} img/s, "
+        f"COCOeval {out['eval_cocoeval_s']:.2f} s (eval) / {out['test_cocoeval_s']:.2f} s (test); "
+        f"predict 640x480 batch 1 p50 {out['predict_640x480_b1_p50_ms']:.3f} ms p90 "
+        f"{out['predict_640x480_b1_p90_ms']:.3f} ms; predict_batch 32 mixed sizes "
+        f"{out['predict_batch32_mixed_img_s']:.1f} img/s; nms kernel [5184, 200] "
+        f"{out['nms_ms_5184x200'] * 1e3:.2f} us (device) beside its bound "
+        f"{out['nms_bound_ms_5184x200'] * 1e3:.2f} us, plain {out['nms_plain_ms_5184x200']:.3f} "
+        f"ms; phase {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="weights, images and NMS sets")
@@ -753,6 +1031,10 @@ def main(argv=None):
     # -- 9. SSDLite-MobileNetV2-300: train, resume, deploy, serve ---------------
     lite = check_lite(args.seed, dev, card, log)
     report["lite"] = lite
+
+    # -- 10. SSDLite-MobileNetV2-300 on COCO: augmented training, COCOeval, serving
+    coco = check_coco(args.seed, dev, card, log, nms_mask, nms_mask_torch)
+    report["coco"] = coco
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -770,12 +1052,23 @@ def main(argv=None):
         "nms_launches_serve", "bn_running_var_moved", "train_step_ms", "train_img_s",
         "predict_b1_p50_ms", "predict_b1_p90_ms", "predict_batch32_img_s", "f32_loc_max_abs_err",
         "f32_conf_max_abs_err", "f32_step", "card")}}))
+    log(json.dumps({"coco": {k: coco[k] for k in (
+        "epoch_loss", "eval_ap", "eval_ap50", "test_ap", "test_ap50", "eval_detections",
+        "nms_launches_eval", "nms_launches_test", "nms_launches_serve", "native_sampler_calls",
+        "augmented_images_differ", "train_step_ms", "train_img_s", "loader_img_s_native",
+        "loader_img_s_python_loop", "eval_img_s", "eval_cocoeval_s", "test_cocoeval_s",
+        "predict_640x480_b1_p50_ms", "predict_640x480_b1_p90_ms", "predict_batch32_mixed_img_s",
+        "nms_ms_5184x200", "nms_plain_ms_5184x200", "nms_bound_ms_5184x200", "nms_ms_81x200",
+        "nms_bound_ms_81x200", "train_model_s", "phase_s", "card")}}))
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55",
-        "launches": launches + lite["nms_launches_serve"],
+        "launches": launches + lite["nms_launches_serve"] + coco["nms_launches_serve"],
         "launches_by_path": {"ssd300_vgg16_serve": launches,
                              "ssd_lite_mobilenetv2_serve": lite["nms_launches_serve"],
+                             "ssd_lite_mobilenetv2_coco_serve": coco["nms_launches_serve"],
+                             "ssd_lite_mobilenetv2_coco_train": coco["nms_launches_eval"]
+                             + coco["nms_launches_test"],
                              "ssd300_vgg16_train": training["nms_launches_eval"]
                              + training["nms_launches_test"],
                              "ssd_lite_mobilenetv2_train": lite["nms_launches_eval"]
@@ -787,6 +1080,9 @@ def main(argv=None):
         "bound_ms_21x200": b1["bound"]["ms"], "wrapper_ms_21x200": min(b1["wrapper_ms"]),
         "ms_1344x200": min(b64["kernel_ms"]), "plain_ms_1344x200": min(b64["plain_ms"]),
         "bound_ms_1344x200": b64["bound"]["ms"], "wrapper_ms_1344x200": min(b64["wrapper_ms"]),
+        "ms_5184x200": coco["nms_ms_5184x200"], "plain_ms_5184x200": coco["nms_plain_ms_5184x200"],
+        "bound_ms_5184x200": coco["nms_bound_ms_5184x200"],
+        "ms_81x200": coco["nms_ms_81x200"], "bound_ms_81x200": coco["nms_bound_ms_81x200"],
     }, {
         "name": "conv3x3_rows", "route": "cuda", "source": "ssds_tpu_torch/csrc/conv3x3.cu",
         "replaces": "tools/pallas_conv_bench.py:50; tools/pallas_conv_bisect.py:71; "

@@ -139,6 +139,22 @@ def ssd_lite_mobilenetv2_config() -> AttrDict:
     return cfg
 
 
+def ssd_lite_mobilenetv2_coco_config() -> AttrDict:
+    """``experiments/cfgs/ssd_lite_mobilenetv2_train_coco.yml`` (SSDLite-MobileNetV2-300
+    on COCO 2017, 81 classes) over the defaults, written out for machines
+    without PyYAML. ``tests/test_torch_port_coco.py`` holds it equal to the file."""
+    cfg = ssd_lite_mobilenetv2_config()
+    cfg.MODEL.NUM_CLASSES = cfg.POST_PROCESS.NUM_CLASSES = 81
+    cfg.TRAIN.MAX_EPOCHS = 250
+    cfg.TEST.TEST_SCOPE = [240, 250]
+    cfg.DATASET.update(DATASET="coco", DATASET_DIR="./data/coco",
+                       TRAIN_SETS=[["2017", "train"]], TEST_SETS=[["2017", "val"]], MAX_GT=128)
+    cfg.EXP_DIR = "./experiments/models/ssd_lite_mbv2_coco"
+    cfg.LOG_DIR = "./experiments/models/ssd_lite_mbv2_coco/logs"
+    cfg.CHECKPOINTS_PREFIX = "ssd_lite_mbv2_coco"
+    return cfg
+
+
 #: process-global singleton, for reference-API parity
 cfg = default_config()
 

@@ -1,4 +1,4 @@
-"""The SSD train-time augmentation recipe (host-side numpy/cv2).
+"""The SSD train-time augmentation recipe (host-side numpy).
 
 A copy of :mod:`ssds_tpu.data.augment` (reference
 ``lib/utils/data_augment.py``): ``preproc.__call__`` chains
@@ -12,16 +12,19 @@ A copy of :mod:`ssds_tpu.data.augment` (reference
 4. ``_expand``  — with probability ``prob``, the image on a 1-4x mean-filled
    canvas, fused here with the final resize;
 5. the resize to IMAGE_SIZE, skipped when the image is already that size
-   (``cv2.resize`` to the same size is the identity).
+   (a resize to the same size is the identity).
 
 Images leave as uint8 HWC BGR; the mean subtraction runs on the device.
 Empty-target guard: if augmentation leaves no box, the unaugmented image
 and targets pass through; an image with no GT returns one all-zero row.
 
-``cv2`` is imported only inside the functions that call it, so the eval path
-at model size (``PROB = -1``) runs without OpenCV. ``_crop`` is the JAX
-package's Python sampling loop; its native C++ sampler
-(``ssds_tpu/data/native.py``) is not ported.
+Every image operation is :mod:`ssds_tpu_torch.data.image_ops`, numpy that
+equals the JAX package's OpenCV calls bit for bit, so the recipe runs on a
+machine without OpenCV. ``_crop`` samples with the native C++ sampler
+(:mod:`ssds_tpu_torch.data.native`, built from the port's copy of the JAX
+package's ``native/ssd_augment.cpp``) exactly where the JAX package does; its
+Python retry loop is the plain version, run when ``native.available()`` is
+false.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import random
 from typing import Tuple
 
 import numpy as np
+
+from ssds_tpu_torch.data import image_ops, native
 
 
 def _matrix_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -45,10 +50,20 @@ def _matrix_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def _crop(image, boxes, labels):
-    """Random IoU-constrained sample crop (reference ``_crop``)."""
+    """Random IoU-constrained sample crop (reference ``_crop``): the native
+    sampler, seeded from ``random`` as the JAX package seeds it, or the
+    Python loop when the sampler is switched off."""
     height, width = image.shape[:2]
     if len(boxes) == 0:
         return image, boxes, labels
+
+    if native.available():
+        res = native.sample_crop(boxes, width, height, seed=random.getrandbits(63))
+        if res is None:
+            return image, boxes, labels
+        roi, mask = res
+        image_t = image[int(roi[1]):int(roi[3]), int(roi[0]):int(roi[2])]
+        return image_t, native.crop_boxes(boxes[mask], roi), labels[mask].copy()
 
     while True:
         mode = random.choice((None, (0.1, None), (0.3, None), (0.5, None), (0.7, None), (0.9, None)))
@@ -89,29 +104,27 @@ def _crop(image, boxes, labels):
 
 def _distort(image):
     """Random photometric distortion (reference ``_distort``), on uint8 with
-    cv2's saturating primitives."""
-    import cv2
-
+    saturating arithmetic."""
     do_bright, do_contrast = random.randrange(2), random.randrange(2)
     alpha = random.uniform(0.5, 1.5) if do_contrast else 1.0
     beta = random.uniform(-32, 32) if do_bright else 0.0
     if do_bright or do_contrast:
         if do_bright:
-            # cv2.add saturates at both ends, as the reference's np.clip
-            image = cv2.add(image, (beta, beta, beta, 0))
+            # saturates at both ends, as the reference's np.clip
+            image = image_ops.add_scalar(image, beta)
         if do_contrast:
-            image = cv2.convertScaleAbs(image, alpha=alpha, beta=0.0)
+            image = image_ops.convert_scale_abs(image, alpha=alpha, beta=0.0)
     else:
         image = image.copy()
-    hsv = cv2.cvtColor(image, cv2.COLOR_BGR2HSV)
+    hsv = image_ops.bgr_to_hsv(image)
     if random.randrange(2):  # saturation scale
         s_alpha = random.uniform(0.5, 1.5)
-        hsv[:, :, 1] = cv2.convertScaleAbs(hsv[:, :, 1], alpha=s_alpha)
+        hsv[:, :, 1] = image_ops.convert_scale_abs(hsv[:, :, 1], alpha=s_alpha)
     if random.randrange(2):  # hue rotation (uint8 H is 0..179)
         shift = random.randint(-18, 18)
         lut = ((np.arange(256) + shift) % 180).astype(np.uint8)
-        hsv[:, :, 0] = cv2.LUT(hsv[:, :, 0], lut)
-    return cv2.cvtColor(hsv, cv2.COLOR_HSV2BGR)
+        hsv[:, :, 0] = lut[hsv[:, :, 0]]
+    return image_ops.hsv_to_bgr(hsv)
 
 
 def _expand(image, boxes, fill, prob):
@@ -136,11 +149,8 @@ def _expand(image, boxes, fill, prob):
         boxes_t = boxes.copy()
         boxes_t[:, :2] += (left, top)
         boxes_t[:, 2:] += (left, top)
-        import cv2
-
-        expand_image = cv2.copyMakeBorder(
-            image, top, h - height - top, left, w - width - left,
-            cv2.BORDER_CONSTANT, value=tuple(float(c) for c in fill))
+        expand_image = image_ops.pad_constant(
+            image, top, h - height - top, left, w - width - left, fill)
         return expand_image, boxes_t
     return image, boxes
 
@@ -181,9 +191,7 @@ def _resize(image: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     """Bilinear resize to ``(h, w)``; the image itself when already that size."""
     if image.shape[:2] == tuple(hw):
         return image
-    import cv2
-
-    return cv2.resize(image, (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR)
+    return image_ops.resize_linear(image, hw)
 
 
 def preproc_for_test(image: np.ndarray, insize: Tuple[int, int], mean) -> np.ndarray:
@@ -241,8 +249,6 @@ class preproc:
             # the image, resized straight to its sub-rectangle, on an
             # output-sized mean canvas: the same pixels as resizing the
             # whole canvas (bilinear over a uniform fill is uniform)
-            import cv2
-
             cw, ch, left, top = exp
             x1 = int(round(left / cw * out_w))
             y1 = int(round(top / ch * out_h))
@@ -250,8 +256,7 @@ class preproc:
             y2 = max(y1 + 1, int(round((top + height) / ch * out_h)))
             canvas = np.empty((out_h, out_w, 3), image_t.dtype)
             canvas[:] = np.asarray(self.means, image_t.dtype)
-            canvas[y1:y2, x1:x2] = cv2.resize(
-                image_t, (x2 - x1, y2 - y1), interpolation=cv2.INTER_LINEAR)
+            canvas[y1:y2, x1:x2] = image_ops.resize_linear(image_t, (y2 - y1, x2 - x1))
             image_t = canvas
             boxes_t[:, 0::2] = (boxes_t[:, 0::2] + left) / cw
             boxes_t[:, 1::2] = (boxes_t[:, 1::2] + top) / ch

@@ -13,8 +13,9 @@ validity mask, so each phase runs at one batch shape.
   :meth:`DetectionLoader.close` ends them.
 - Train batches drop the last partial batch; eval batches pad the last one
   by wrapping around and the eval keeps the true image count.
-- Only ``voc`` is ported; COCO (``data/coco.py``, ``data/coco_eval.py``) is
-  not yet.
+- ``dataset_map`` holds ``voc`` (:class:`~ssds_tpu_torch.data.voc.VOCDetection`)
+  and ``coco`` (:class:`~ssds_tpu_torch.data.coco.COCODetection`), as the
+  JAX package's.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ from typing import Iterator
 import numpy as np
 
 from ssds_tpu_torch.data.augment import preproc
+from ssds_tpu_torch.data.coco import COCODetection
 from ssds_tpu_torch.data.voc import VOCDetection
 
-dataset_map = {"voc": VOCDetection}
+dataset_map = {"voc": VOCDetection, "coco": COCODetection}
 
 
 def detection_collate(samples, max_gt: int) -> dict:

@@ -5,7 +5,8 @@ one image 110 times through :meth:`ObjectDetector.predict` with
 ``check_time``, skip 10 warm-up requests, and print the per-stage times
 every 20 requests and the p50 / p90 latency and frames per second at the
 end. Without ``--demo`` the image is random uint8 at the model's input size
-(so no resize runs); with ``--demo`` it is read with cv2. Without ``--cfg``
+(so no resize runs); with ``--demo`` it is read by the COCO dataset's image
+hook (OpenCV) and resized on the host with numpy. Without ``--cfg``
 the model is the default SSD300-VGG16 (VOC, 21 classes) with seeded random
 weights. The ``image``, ``video`` and ``camera`` modes are not ported yet.
 """
@@ -38,11 +39,9 @@ def demo(argv=None):
     cfg = cfg_from_file(args.config_file) if args.config_file else default_config()
     detector = ObjectDetector(cfg, device=args.device, seed=args.seed)
     if args.demo_file:
-        import cv2
+        from ssds_tpu_torch.data.coco import COCODetection
 
-        img = cv2.imread(args.demo_file, cv2.IMREAD_COLOR)
-        if img is None:
-            raise FileNotFoundError(args.demo_file)
+        img = COCODetection._read_image((args.demo_file, None))
     else:
         h, w = detector.img_hw
         img = np.random.default_rng(args.seed).integers(0, 256, (h, w, 3), dtype=np.uint8)

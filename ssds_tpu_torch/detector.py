@@ -11,8 +11,9 @@ softmax, decode and detect in float32, with the batched NMS as the CUDA
 kernel on a GPU. The host uploads one ``[B, H, W, 3]`` uint8 batch and
 downloads one ``[B, C, max_det, 5]`` float32 block.
 
-``cv2`` is imported only to resize an image that is not already at the
-model's input size.
+An image that is not at the model's input size is resized on the host by
+:func:`ssds_tpu_torch.data.image_ops.resize_linear`, numpy bit-equal to the
+bilinear resize the JAX detector calls, so serving needs no OpenCV.
 """
 
 from __future__ import annotations
@@ -23,17 +24,16 @@ import numpy as np
 import torch
 
 from ssds_tpu_torch.checkpoint import load_state_dict_file
+from ssds_tpu_torch.data.image_ops import resize_linear
 from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
 from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect
 
 
 def _resize(img: np.ndarray, hw) -> np.ndarray:
-    """HWC uint8 to the model size (bilinear, as the JAX detector's cv2 call)."""
+    """HWC uint8 to the model size (bilinear, as the JAX detector's)."""
     if img.shape[:2] == tuple(hw):
         return img
-    import cv2
-
-    return cv2.resize(img, (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR)
+    return resize_linear(img, hw)
 
 
 class ObjectDetector:

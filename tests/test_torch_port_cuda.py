@@ -500,3 +500,55 @@ def test_ssd_lite_train_step_on_the_card_equals_cpu(cuda):
     assert max(r["loss_rel_err"].values()) <= chip_smoke.STEP_RTOL
     assert r["update_err_over_max_update"] <= chip_smoke.LITE_UPDATE_TOL
     assert r["stats_rel_err_max"] <= chip_smoke.LITE_STATS_RTOL
+
+
+@pytest.mark.parametrize("kind", ["random", "dense_overlap", "tied_scores"])
+def test_kernel_bit_identical_at_the_coco_eval_shape(cuda, kind):
+    """``[64 x 81, 200]``: COCO's eval at ``TEST.BATCH_SIZE`` 64."""
+    m, n = 5184, 200
+    rng = np.random.default_rng([m, n, len(kind)])
+    boxes, scores = _sorted_set(rng, m, n, *((0.3, 0.5) if kind == "dense_overlap" else ()),
+                                levels=6 if kind == "tied_scores" else 0)
+    bc, sc = boxes.to(cuda), scores.to(cuda)
+    for thr in (0.45, 0.6):
+        got = cuda_nms.nms_mask(bc, sc, thr).cpu()
+        assert torch.equal(got, nms_mask_torch(bc, sc, thr).cpu())
+        assert torch.equal(got, nms_mask_torch(boxes, scores, thr))
+
+
+def test_native_sampler_builds_and_samples():
+    """The crop sampler's host library builds from ``csrc/ssd_augment.cpp``
+    with this machine's g++ and samples crops that hold the recipe's
+    constraints (it needs no card; it belongs to the card machine's checks)."""
+    from ssds_tpu_torch.data import native
+
+    boxes = np.array([[20, 30, 80, 90], [100, 10, 150, 110]], np.float32)
+    hits = [r for r in (native.sample_crop(boxes, 160, 120, s) for s in range(200)) if r]
+    assert len(hits) > 100
+    for roi, mask in hits:
+        assert 0 <= roi[0] < roi[2] <= 160 and 0 <= roi[1] < roi[3] <= 120 and mask.any()
+        cropped = native.crop_boxes(boxes[mask], roi)
+        assert (cropped >= 0).all() and (cropped[:, 2] <= roi[2] - roi[0]).all()
+
+
+def test_detector_predicts_a_640x480_image_on_the_card(cuda):
+    """``predict`` resizes a 640x480 image on the host (numpy) and serves it:
+    its rows are ``detect`` on the resized image, rescaled to 640x480."""
+    from ssds_tpu_torch.data.image_ops import resize_linear
+    from ssds_tpu_torch.detector import ObjectDetector
+
+    cfg = default_config()
+    cfg.MODEL.IMAGE_SIZE = [64, 64]
+    cfg.MODEL.FEATURE_LAYER = [[22, 34, "S"], [512, 1024, 512]]
+    cfg.MODEL.ASPECT_RATIOS = [[2], [2, 3], [2, 3]]
+    det = ObjectDetector(cfg, device=cuda)
+    img = np.random.default_rng(1).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    before = cuda_nms.nms_mask.launches
+    boxes, labels, scores = det.predict(img, threshold=0.01)
+    assert cuda_nms.nms_mask.launches == before + 1
+    rows = det.detect_rows(resize_linear(img, (64, 64))[None])[0].cpu().numpy()
+    cls, slot = np.nonzero(rows[..., 0] > 0.01)
+    np.testing.assert_array_equal(labels, cls - 1)
+    np.testing.assert_array_equal(scores, rows[cls, slot, 0])
+    np.testing.assert_array_equal(boxes, rows[cls, slot, 1:5] * np.float32([640, 480, 640, 480]))
+    assert len(scores) > 0

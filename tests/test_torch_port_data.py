@@ -5,11 +5,13 @@ factory}.py`` (the machine with the card has no jax, so the port imports
 nothing of ``ssds_tpu``). These tests hold each copy against its original on
 the same inputs: batches, padding, shards and truncation counts equal;
 preprocessed images and targets bit-equal, on the eval path and, under the
-same ``random`` / ``np.random`` seeds, on the train path (the JAX side with
-its native crop sampler switched off, so both run the same Python loop);
-per-class AP and mAP equal on a synthetic VOC tree.
+same ``random`` / ``np.random`` seeds, on the train path (both packages with
+their native crop samplers, which run the same C++ on the same seeds, and
+both with the sampler switched off, running the same Python loop); per-class
+AP and mAP equal on a synthetic VOC tree.
 """
 
+import contextlib
 import os
 import random
 from unittest import mock
@@ -22,7 +24,7 @@ from ssds_tpu.data import factory as jax_factory
 from ssds_tpu.data import native as jax_native
 from ssds_tpu.data import voc as jax_voc
 from ssds_tpu_torch.config import default_config
-from ssds_tpu_torch.data import augment, factory, voc
+from ssds_tpu_torch.data import augment, factory, native, voc
 from ssds_tpu_torch.data.voc_eval import voc_ap
 from ssds_tpu_torch.tools import synth_voc
 from test_multiclass_map_cli import make_multiclass_voc
@@ -128,8 +130,9 @@ def test_eval_preproc_bit_equal_to_jax():
                                       jax_augment.preproc_for_test(img, (64, 64), (104, 117, 123)))
 
 
+@pytest.mark.parametrize("sampler", ["python_loop", "native"])
 @pytest.mark.parametrize("size", [(96, 96), (300, 300)])
-def test_train_preproc_bit_equal_to_jax_under_the_same_seeds(size):
+def test_train_preproc_bit_equal_to_jax_under_the_same_seeds(size, sampler):
     rng = np.random.default_rng(1)
     cases = []
     for _ in range(40):
@@ -145,9 +148,16 @@ def test_train_preproc_bit_equal_to_jax_under_the_same_seeds(size):
         np.random.seed(7)
         return [pre(img, t) for img, t in cases]
 
-    with mock.patch.object(jax_native, "available", lambda: False):
+    with contextlib.ExitStack() as stack:
+        if sampler == "python_loop":
+            stack.enter_context(mock.patch.object(jax_native, "available", lambda: False))
+            stack.enter_context(mock.patch.object(native, "available", lambda: False))
+        else:
+            assert jax_native.available()
+        launches = native.launches
         want = run(jax_augment.preproc(size, (104, 117, 123), 0.6))
-    got = run(augment.preproc(size, (104, 117, 123), 0.6))
+        got = run(augment.preproc(size, (104, 117, 123), 0.6))
+    assert (native.launches > launches) == (sampler == "native")
     for (gi, gt), (wi, wt) in zip(got, want):
         assert gi.shape == (*size, 3) and gi.dtype == np.uint8
         np.testing.assert_array_equal(gi, wi)

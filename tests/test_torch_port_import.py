@@ -45,13 +45,59 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.train", "ssds_tpu_torch.test",
                    "ssds_tpu_torch.profile_training", "ssds_tpu_torch.tools.synth_voc",
                    "ssds_tpu_torch.models.backbones.mobilenet",
-                   "ssds_tpu_torch.models.heads.ssd_lite", "ssds_tpu_torch.tools.step_parity"):
+                   "ssds_tpu_torch.models.heads.ssd_lite", "ssds_tpu_torch.tools.step_parity",
+                   "ssds_tpu_torch.data.coco", "ssds_tpu_torch.data.coco_eval",
+                   "ssds_tpu_torch.data.image_ops", "ssds_tpu_torch.data.native",
+                   "ssds_tpu_torch.tools.synth_coco"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,
                           capture_output=True, text=True, timeout=120, cwd=REPO)
     assert proc.returncode == 0, proc.stderr
     assert "port-import-clean:" in proc.stdout
+
+
+def _imports_in_functions(path, module):
+    """``[(enclosing function, line)]`` of every import of ``module`` in ``path``."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            name = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) \
+                else func
+            if isinstance(child, ast.Import) and any(
+                    a.name.split(".")[0] == module for a in child.names):
+                found.append((func, child.lineno))
+            elif isinstance(child, ast.ImportFrom) and (child.module or "").split(".")[0] == module:
+                found.append((func, child.lineno))
+            visit(child, name)
+
+    visit(tree, None)
+    return found
+
+
+def test_only_the_image_read_hooks_import_cv2_and_only_cfg_loading_imports_yaml():
+    """OpenCV only inside the VOC and COCO datasets' ``_read_image`` (JPEG
+    decoding); PyYAML only inside ``cfg_from_file`` / ``cfg_from_list``; the
+    augmentation and the detector do not name OpenCV at all."""
+    sources = sorted(glob.glob(os.path.join(REPO, "ssds_tpu_torch", "**", "*.py"), recursive=True))
+    sources.append(os.path.join(REPO, "chip_smoke.py"))
+    cv2_sites, yaml_sites = [], []
+    for path in sources:
+        rel = os.path.relpath(path, REPO)
+        cv2_sites += [(rel, func) for func, _ in _imports_in_functions(path, "cv2")]
+        yaml_sites += [(rel, func) for func, _ in _imports_in_functions(path, "yaml")]
+    assert sorted(cv2_sites) == [("ssds_tpu_torch/data/coco.py", "_read_image"),
+                                 ("ssds_tpu_torch/data/voc.py", "_read_image")]
+    assert sorted(yaml_sites) == [("ssds_tpu_torch/config.py", "cfg_from_file"),
+                                  ("ssds_tpu_torch/config.py", "cfg_from_list")]
+    for rel in ("ssds_tpu_torch/data/augment.py", "ssds_tpu_torch/detector.py"):
+        with open(os.path.join(REPO, rel)) as f:
+            assert "cv2" not in f.read(), rel
 
 
 def _flat(tree, prefix=""):
