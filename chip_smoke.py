@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite and COCO paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD and RFB paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -82,12 +82,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    on 32 images of mixed sizes; the batch-64 train step, the train loader's
    img/s over an epoch with the native sampler and with the Python loop, the
    eval's img/s and COCOeval seconds, batch-1 ``predict`` p50 / p90 on the
-   640x480 image and batch-32 ``predict_batch`` img/s on mixed sizes.
+   640x480 image and batch-32 ``predict_batch`` img/s on mixed sizes;
+11. FSSD-VGG16-300 and RFBNet-VGG16-300, each as phase 9 drives SSDLite
+   (``drive_model``): the yml's model at full width and depth
+   (``config.fssd_vgg16_config()`` / ``rfb_vgg16_config()``: VOC, 21
+   classes, 8732 priors, bf16), its SGD (LR 1e-3, momentum 0.9, decay 5e-4),
+   its sgdr schedule with its 10 warm-up epochs and its ``TRAINABLE_SCOPE``
+   (FSSD's names ``fusion``), at batch 32 over the synthetic VOC. Cut from
+   the yml: 64 ``trainval`` and 32 ``test`` synthetic images for VOC07+12,
+   3 epochs (``HEAD_EPOCHS``) for 300, ``PROB -1`` for 0.6 (as phase 8),
+   ``TEST_SCOPE`` [3, 3] for [290, 300]. ``Solver.train_model`` with the eval
+   of the last epoch (losses finite, every BatchNorm's running variance
+   moved, mAP in [0, 1]); resume (weights and running statistics equal);
+   ``test_model``; ``ObjectDetector`` on the checkpoint equal to the
+   solver's rows; ``predict`` x3 and ``predict_batch`` at 4 and 32 with the
+   NMS kernel's launches counted, detect rows identical with the kernel and
+   the plain NMS at batch 1 and 32; for FSSD, its pyramid and predictors
+   float32 in bf16 serving (weights and sources); a float32 forward, card
+   against CPU; one float32 step at batch 4 (``HEAD_F32_BATCH``), card
+   against CPU (``HEADS``' limits); the batch-32 train step, batch-1
+   ``predict`` p50 / p90 and batch-32 ``predict_batch`` img/s.
 
-Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}`` and
-``{"coco": {...}}``, then ``{"kernels": [...]}`` (the NMS entry's
-``launches`` counts phases 4, 9 and 10's serving, ``launches_by_path`` every
-path), the card's name and power limit, and as the last line
+Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
+``{"coco": {...}}`` and ``{"heads": {"fssd": {...}, "rfb": {...}}}``, then
+``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4, 9, 10
+and 11's serving, ``launches_by_path`` every path), the card's name and
+power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
 line, the NMS entry's ``ms`` is device time alone (launches queued behind a
 sleep kernel: at a few µs a launch, back-to-back calls time the host); its
@@ -154,6 +174,18 @@ LITE_UPDATE_TOL, LITE_STATS_RTOL = 3e-2, 5e-4
 # serving's [81, 200] and the eval's [64 x 81, 200]
 COCO_EPOCHS, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES = 3, 256, 128
 COCO_NMS_SHAPES = [(81, 200), (5184, 200)]
+# phase 11: FSSD-VGG16-300 and RFBNet-VGG16-300 (8732 priors each): epochs,
+# the float32 step's batch, and for each head its BatchNorm count (FSSD: the
+# fusion BN and 6 pyramid blocks; RFB: BasicRFB_a's 14 and 11 in each of 3
+# BasicRFB) and its float32 step's limits, card (TF32 off) against CPU, as
+# phase 9's measures: the losses STEP_RTOL; the largest update error over the
+# model's largest update, 2e-2; a running mean's error in units of its
+# channel's standard deviation, a variance's relative to itself, 5e-5.
+# Measured on an NVIDIA H100 80GB HBM3 (700 W): losses 2.1e-7 / 5.3e-7 (FSSD
+# / RFB), updates 5.6e-3 / 2.8e-3 (base.2, a VGG16 conv, in both: cuDNN's
+# float32 algorithms, as phase 8's base.24), statistics 2.1e-6 / 1.3e-6.
+HEAD_EPOCHS, HEAD_F32_BATCH = 3, 4
+HEADS = {"fssd": (7, 2e-2, 5e-5), "rfb": (47, 2e-2, 5e-5)}
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -456,8 +488,13 @@ def train_step_ms(solver):
     return (time.perf_counter() - t0) / 20 * 1e3
 
 
-def check_lite(seed, dev, card, log):
-    """Phase 9: SSDLite-MobileNetV2-300 trained, resumed, deployed and served."""
+def drive_model(what, make_cfg, seed, dev, card, log, *, priors, batchnorms, f32_batch,
+                update_tol, stats_rtol):
+    """Train, resume, deploy, serve and time one model over the synthetic VOC
+    (phases 9 and 11); ``make_cfg(root, exp)`` gives its config. Checks the
+    prior and BatchNorm counts, and, for a head with ``FLOAT32_MODULES``
+    (FSSD), that bf16 serving keeps their weights and the pyramid sources in
+    float32. Returns the numbers."""
     from ssds_tpu_torch.data import factory
     from ssds_tpu_torch.data.factory import detection_collate
     from ssds_tpu_torch.detector import ObjectDetector
@@ -470,16 +507,18 @@ def check_lite(seed, dev, card, log):
     from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
 
     out = {"card": card}
+    t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, \
             mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
         root, exp = os.path.join(tmp, "VOCdevkit"), os.path.join(tmp, "exp")
         write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
-        cfg = lite_config(root, exp)
+        cfg = make_cfg(root, exp)
+        epochs = int(cfg.TRAIN.MAX_EPOCHS)
         writer = ScalarWriter()
         solver = Solver(cfg, device=dev, writer=writer, seed=seed)
         bns = [m for m in solver.model.modules() if isinstance(m, BatchNorm)]
-        if solver.priors.shape != (LITE_PRIORS, 4) or len(bns) != LITE_BATCHNORMS:
-            raise AssertionError(f"SSDLite-MobileNetV2-300: {tuple(solver.priors.shape)} priors, "
+        if solver.priors.shape != (priors, 4) or len(bns) != batchnorms:
+            raise AssertionError(f"{what}: {tuple(solver.priors.shape)} priors, "
                                  f"{len(bns)} BatchNorms")
         var0 = [m.running_var.clone() for m in bns]
         resumed = None
@@ -496,26 +535,26 @@ def check_lite(seed, dev, card, log):
             out["eval_map"] = writer.scalars["Eval/mAP"][-1][1]
             moved = sum(not torch.equal(m.running_var, v) for m, v in zip(bns, var0))
             out["bn_running_var_moved"] = moved
-            log(f"trained SSDLite-MobileNetV2-300 bf16 batch 32: {len(out['epoch_loss'])} epochs, "
+            log(f"trained {what} bf16 batch 32: {len(out['epoch_loss'])} epochs, "
                 f"{solver.step} steps in {out['train_model_s']:.1f} s; epoch mean loss "
                 f"{[round(v, 4) for v in out['epoch_loss']]}; eval mAP {out['eval_map']:.4f}; "
                 f"running variances moved in {moved}/{len(bns)} BatchNorms; nms kernel launches "
                 f"{out['nms_launches_eval']}")
             if not all(np.isfinite(v) for vals in writer.scalars.values() for _, v in vals):
                 raise AssertionError(f"a loss is not finite: {writer.scalars}")
-            if len(out["epoch_loss"]) != LITE_EPOCHS or moved != len(bns):
+            if len(out["epoch_loss"]) != epochs or moved != len(bns):
                 raise AssertionError(f"{len(out['epoch_loss'])} epochs, {moved} BNs moved")
             if not (0.0 <= out["eval_map"] <= 1.0 and out["nms_launches_eval"] > 0):
                 raise AssertionError(f"eval: mAP {out['eval_map']}, "
                                      f"{out['nms_launches_eval']} nms launches")
-            ckpt = os.path.join(exp, f"{cfg.CHECKPOINTS_PREFIX}_epoch_{LITE_EPOCHS}.pth")
+            ckpt = os.path.join(exp, f"{cfg.CHECKPOINTS_PREFIX}_epoch_{epochs}.pth")
 
             # -- resume, test, deploy
             resumed = Solver(cfg, device=dev, writer=ScalarWriter(), seed=seed + 1)
             resumed.train_model()  # auto-resume at the last epoch: no epoch left
             want = solver.model.state_dict()
             same = all(torch.equal(v, want[k]) for k, v in resumed.model.state_dict().items())
-            if resumed.start_epoch != LITE_EPOCHS or not same:
+            if resumed.start_epoch != epochs or not same:
                 raise AssertionError(f"resume: epoch {resumed.start_epoch}, state equal {same}")
             nms_mask.launches = 0
             out["test_map"] = resumed.test_model()
@@ -553,7 +592,7 @@ def check_lite(seed, dev, card, log):
             torch.cuda.synchronize()
             out["nms_launches_serve"] = nms_mask.launches
             if out["nms_launches_serve"] <= 0:
-                raise AssertionError("serving SSDLite never launched the NMS kernel")
+                raise AssertionError(f"serving {what} never launched the NMS kernel")
             for boxes, labels, scores in served:
                 assert boxes.shape == (len(labels), 4) and len(scores) == len(labels)
                 assert np.isfinite(boxes).all() and np.isfinite(scores).all()
@@ -567,11 +606,24 @@ def check_lite(seed, dev, card, log):
                         plain_rows = postprocess.detect(loc, conf, det.priors, det.post)
                 assert rows.shape == (len(group), 21, 100, 5) and torch.isfinite(rows).all()
                 if not torch.equal(rows, plain_rows):
-                    raise AssertionError(f"SSDLite {name}: detect rows with the kernel != plain")
-            log(f"served SSDLite-MobileNetV2-300 bf16: predict x3, predict_batch x4 and x32 "
+                    raise AssertionError(f"{what} {name}: detect rows with the kernel != plain")
+            log(f"served {what} bf16: predict x3, predict_batch x4 and x32 "
                 f"({sum(len(s[2]) for s in served)} detections at threshold 0.01), nms kernel "
                 f"launches {out['nms_launches_serve']}; detect rows identical with kernel and "
                 "plain NMS at batch 1 and 32")
+            float32_modules = getattr(det.model, "FLOAT32_MODULES", ())
+            if float32_modules:
+                x = torch.from_numpy(np.stack(singles[:2])).to(dev)
+                with torch.no_grad():
+                    xb = ((x.float() - det.means).permute(0, 3, 1, 2)).to(det.dtype)
+                    sources = det.model(xb, phase="feature")
+                dtypes = {str(p.dtype) for n in float32_modules
+                          for p in det.model.get_submodule(n).parameters()}
+                out["float32_sources"] = [str(t.dtype) for t in sources]
+                log(f"{what} bf16 serving: modules {float32_modules} hold {sorted(dtypes)}; "
+                    f"pyramid sources {out['float32_sources']}")
+                if dtypes != {"torch.float32"} or any(t.dtype != torch.float32 for t in sources):
+                    raise AssertionError(f"{what}: the layers after the fusion BN are not float32")
 
             # float32 forward on the card (TF32 off) against the CPU, checkpoint weights
             cfg32 = copy.deepcopy(dcfg)
@@ -584,9 +636,9 @@ def check_lite(seed, dev, card, log):
                 cpu_loc, cpu_conf = ObjectDetector(cfg32, device="cpu").forward(x)
             out["f32_loc_max_abs_err"] = (gpu_loc - cpu_loc).abs().max().item()
             out["f32_conf_max_abs_err"] = (gpu_conf - cpu_conf).abs().max().item()
-            log(f"SSDLite float32 forward, card vs CPU: loc max|d| {out['f32_loc_max_abs_err']:.3e}"
-                f" (max|loc| {cpu_loc.abs().max().item():.3e}), conf max|d| "
-                f"{out['f32_conf_max_abs_err']:.3e}")
+            log(f"{what} float32 forward, card vs CPU: loc max|d| "
+                f"{out['f32_loc_max_abs_err']:.3e} (max|loc| {cpu_loc.abs().max().item():.3e}), "
+                f"conf max|d| {out['f32_conf_max_abs_err']:.3e}")
             torch.testing.assert_close(gpu_loc, cpu_loc, rtol=F32_RTOL, atol=F32_ATOL)
             torch.testing.assert_close(gpu_conf, cpu_conf, rtol=F32_RTOL, atol=F32_ATOL)
 
@@ -596,11 +648,11 @@ def check_lite(seed, dev, card, log):
             lat, out["predict_batch32_img_s"] = serve_times(det, singles[0], batch32)
             out["predict_b1_p50_ms"] = float(np.percentile(lat, 50)) * 1e3
             out["predict_b1_p90_ms"] = float(np.percentile(lat, 90)) * 1e3
-            log(f"SSDLite-MobileNetV2-300 bf16: train step batch 32 (20 steps after 3 warm-up, "
-                f"upload included) {out['train_step_ms']:.3f} ms, {out['train_img_s']:.1f} img/s; "
-                f"batch-1 predict p50 {out['predict_b1_p50_ms']:.3f} ms, p90 "
-                f"{out['predict_b1_p90_ms']:.3f} ms (50 requests); batch-32 predict_batch "
-                f"{out['predict_batch32_img_s']:.1f} img/s (10 batches) ({card})")
+            log(f"{what} bf16: train step batch 32 (20 steps after 3 warm-up, upload included) "
+                f"{out['train_step_ms']:.3f} ms, {out['train_img_s']:.1f} img/s; batch-1 predict "
+                f"p50 {out['predict_b1_p50_ms']:.3f} ms, p90 {out['predict_b1_p90_ms']:.3f} ms "
+                f"(50 requests); batch-32 predict_batch {out['predict_batch32_img_s']:.1f} img/s "
+                f"(10 batches) ({card})")
             del det
         finally:
             solver.close()
@@ -611,16 +663,59 @@ def check_lite(seed, dev, card, log):
         t0 = time.perf_counter()
         dataset = factory.load_data(cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE).dataset
         f32 = step_parity.compare(cfg, dev, detection_collate(
-            [dataset[i] for i in range(LITE_F32_BATCH)], int(cfg.DATASET.MAX_GT)), seed)
+            [dataset[i] for i in range(f32_batch)], int(cfg.DATASET.MAX_GT)), seed)
         out["f32_step_s"] = time.perf_counter() - t0
-    f32.update(loss_rtol=STEP_RTOL, update_tol=LITE_UPDATE_TOL, stats_rtol=LITE_STATS_RTOL)
+    f32.update(loss_rtol=STEP_RTOL, update_tol=update_tol, stats_rtol=stats_rtol)
     out["f32_step"] = f32
-    log_f32_step(f"SSDLite-MobileNetV2-300 batch {LITE_F32_BATCH}", f32, log)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log_f32_step(f"{what} batch {f32_batch}", f32, log)
+    log(f"{what}: seconds: phase {out['phase_s']:.1f}, train_model {out['train_model_s']:.1f}, "
+        f"float32 step card and CPU {out['f32_step_s']:.1f}")
     if (max(f32["loss_rel_err"].values()) > STEP_RTOL
-            or f32["update_err_over_max_update"] > LITE_UPDATE_TOL
-            or f32["stats_rel_err_max"] > LITE_STATS_RTOL):
-        raise AssertionError(f"SSDLite float32 step card vs CPU outside {STEP_RTOL} / "
-                             f"{LITE_UPDATE_TOL} / {LITE_STATS_RTOL}: {f32}")
+            or f32["update_err_over_max_update"] > update_tol
+            or f32["stats_rel_err_max"] > stats_rtol):
+        raise AssertionError(f"{what} float32 step card vs CPU outside {STEP_RTOL} / "
+                             f"{update_tol} / {stats_rtol}: {f32}")
+    return out
+
+
+def check_lite(seed, dev, card, log):
+    """Phase 9: SSDLite-MobileNetV2-300 trained, resumed, deployed and served."""
+    return drive_model("SSDLite-MobileNetV2-300", lite_config, seed, dev, card, log,
+                       priors=LITE_PRIORS, batchnorms=LITE_BATCHNORMS, f32_batch=LITE_F32_BATCH,
+                       update_tol=LITE_UPDATE_TOL, stats_rtol=LITE_STATS_RTOL)
+
+
+def head_config(kind):
+    """Phase 11's config maker for ``kind`` (``fssd`` or ``rfb``): its yml
+    (``config.MODELS``) as written, over the synthetic VOC tree, cut as the
+    module docstring lists."""
+    from ssds_tpu_torch.config import MODELS
+
+    def make(root, exp):
+        cfg = MODELS[kind][1]()
+        cfg.DATASET.update(DATASET_DIR=root, TRAIN_SETS=[["2007", "trainval"]],
+                           TEST_SETS=[["2007", "test"]], PROB=-1, NUM_WORKERS=4)
+        cfg.TRAIN.update(MAX_EPOCHS=HEAD_EPOCHS, CHECKPOINTS_EPOCHS=HEAD_EPOCHS)
+        cfg.TEST.TEST_SCOPE = [HEAD_EPOCHS, HEAD_EPOCHS]
+        cfg.PHASE = ["train", "eval"]
+        cfg.EXP_DIR, cfg.LOG_DIR = exp, os.path.join(exp, "logs")
+        return cfg
+
+    return make
+
+
+def check_heads(seed, dev, card, log):
+    """Phase 11: FSSD-VGG16-300 and RFBNet-VGG16-300 trained, resumed, deployed
+    and served."""
+    from ssds_tpu_torch.config import MODELS
+
+    out = {}
+    for kind, (batchnorms, update_tol, stats_rtol) in HEADS.items():
+        out[kind] = drive_model(MODELS[kind][0], head_config(kind), seed, dev, card, log,
+                                priors=SSD300_PRIORS, batchnorms=batchnorms,
+                                f32_batch=HEAD_F32_BATCH, update_tol=update_tol,
+                                stats_rtol=stats_rtol)
     return out
 
 
@@ -1035,6 +1130,10 @@ def main(argv=None):
     # -- 10. SSDLite-MobileNetV2-300 on COCO: augmented training, COCOeval, serving
     coco = check_coco(args.seed, dev, card, log, nms_mask, nms_mask_torch)
     report["coco"] = coco
+
+    # -- 11. FSSD-VGG16-300 and RFBNet-VGG16-300: train, resume, deploy, serve ---
+    heads = check_heads(args.seed, dev, card, log)
+    report["heads"] = heads
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -1060,10 +1159,21 @@ def main(argv=None):
         "predict_640x480_b1_p50_ms", "predict_640x480_b1_p90_ms", "predict_batch32_mixed_img_s",
         "nms_ms_5184x200", "nms_plain_ms_5184x200", "nms_bound_ms_5184x200", "nms_ms_81x200",
         "nms_bound_ms_81x200", "train_model_s", "phase_s", "card")}}))
+    log(json.dumps({"heads": {head: {k: h[k] for k in (
+        "epoch_loss", "eval_map", "test_map", "nms_launches_eval", "nms_launches_test",
+        "nms_launches_serve", "bn_running_var_moved", "float32_sources", "train_step_ms",
+        "train_img_s", "predict_b1_p50_ms", "predict_b1_p90_ms", "predict_batch32_img_s",
+        "f32_loc_max_abs_err", "f32_conf_max_abs_err", "f32_step", "train_model_s", "phase_s",
+        "card") if k in h} for head, h in heads.items()}}))
+    head_paths = {}
+    for head, h in heads.items():
+        head_paths[f"{head}_vgg16_serve"] = h["nms_launches_serve"]
+        head_paths[f"{head}_vgg16_train"] = h["nms_launches_eval"] + h["nms_launches_test"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55",
-        "launches": launches + lite["nms_launches_serve"] + coco["nms_launches_serve"],
+        "launches": launches + lite["nms_launches_serve"] + coco["nms_launches_serve"]
+        + sum(h["nms_launches_serve"] for h in heads.values()),
         "launches_by_path": {"ssd300_vgg16_serve": launches,
                              "ssd_lite_mobilenetv2_serve": lite["nms_launches_serve"],
                              "ssd_lite_mobilenetv2_coco_serve": coco["nms_launches_serve"],
@@ -1072,7 +1182,7 @@ def main(argv=None):
                              "ssd300_vgg16_train": training["nms_launches_eval"]
                              + training["nms_launches_test"],
                              "ssd_lite_mobilenetv2_train": lite["nms_launches_eval"]
-                             + lite["nms_launches_test"]},
+                             + lite["nms_launches_test"], **head_paths},
         "max_abs_err": nms_err, "ms": min(b32["kernel_ms"]), "plain_ms": min(b32["plain_ms"]),
         "bound_ms": b32["bound"]["ms"], "bound_by": b32["bound"]["by"], "library_ms": None,
         "shape": [672, 200], "wrapper_ms": min(b32["wrapper_ms"]),

@@ -23,7 +23,7 @@ import os
 import queue
 import re
 import threading
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Sequence
 
 import torch
 
@@ -39,20 +39,26 @@ def _name_matches(name: str, prefix: str) -> bool:
     return name.startswith(prefix) and tail.isdigit() and tail != ""
 
 
-def path_in_scope(name: str, scope: str) -> bool:
+def path_in_scope(name: str, scope: str, aliases: Optional[Mapping[str, Sequence[str]]] = None
+                  ) -> bool:
     """Does a state-dict name (``'base.0.weight'``) fall under a scope string
     (``'base,norm,extras'``)? The empty scope matches everything.
 
     The scope words are the reference's module names, which the port's
-    modules keep (``base``, ``norm``, ``extras``, ``loc``, ``conf``), so a
-    word is matched against the name's first part directly; the JAX package
-    maps each word to its flax names (``ssds_tpu/checkpoint.py``
-    ``SCOPE_PREFIXES``).
+    modules keep (``base``, ``norm``, ``extras``, ``transforms``,
+    ``pyramids``, ``loc``, ``conf``), so a word is matched against the
+    name's first part directly; the JAX package maps each word to its flax
+    names (``ssds_tpu/checkpoint.py`` ``SCOPE_PREFIXES``). ``aliases`` maps
+    a word with no module of its name to the modules it selects, a model's
+    ``SCOPE_ALIASES``: FSSD's ``{'fusion': ('norm',)}``, since its fusion BN
+    is the reference's ``norm``.
     """
     if not scope:
         return True
     top = name.split(".", 1)[0]
-    return any(_name_matches(top, w.strip()) for w in scope.split(",") if w.strip())
+    aliases = aliases or {}
+    words = [w.strip() for w in scope.split(",") if w.strip()]
+    return any(_name_matches(top, m) for w in words for m in aliases.get(w, (w,)))
 
 
 def save_checkpoint(exp_dir: str, prefix: str, epoch: int,
@@ -155,11 +161,12 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
 
 
 def resume_checkpoint(state_dict: Mapping[str, torch.Tensor], path: str,
-                      resume_scope: str = "") -> Dict[str, torch.Tensor]:
+                      resume_scope: str = "", aliases=None) -> Dict[str, torch.Tensor]:
     """Load a checkpoint over ``state_dict`` as the reference does: only keys
-    in both (the others printed), only names under ``resume_scope`` when it
-    is given, only matching shapes. Returns a new state dict for
-    ``load_state_dict``; the tensors not loaded are ``state_dict``'s own."""
+    in both (the others printed), only names under ``resume_scope`` (with the
+    model's scope ``aliases``, :func:`path_in_scope`) when it is given, only
+    matching shapes. Returns a new state dict for ``load_state_dict``; the
+    tensors not loaded are ``state_dict``'s own."""
     ckpt = load_state_dict_file(path)
     out = dict(state_dict)
     loaded, skipped = 0, []
@@ -167,7 +174,7 @@ def resume_checkpoint(state_dict: Mapping[str, torch.Tensor], path: str,
         if k not in state_dict:
             skipped.append(k)
             continue
-        if resume_scope and not path_in_scope(k, resume_scope):
+        if resume_scope and not path_in_scope(k, resume_scope, aliases):
             continue
         if tuple(state_dict[k].shape) != tuple(v.shape):
             skipped.append(k + " (shape)")

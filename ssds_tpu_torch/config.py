@@ -155,6 +155,48 @@ def ssd_lite_mobilenetv2_coco_config() -> AttrDict:
     return cfg
 
 
+def _vgg16_voc_config(ssds: str, feature_layer, scope: str, name: str) -> AttrDict:
+    """The shared body of ``experiments/cfgs/{fssd,rfb}_vgg16_train_voc.yml``."""
+    cfg = default_config()
+    cfg.MODEL.update(SSDS=ssds, FEATURE_LAYER=feature_layer,
+                     SIZES=[0.1, 0.2, 0.38, 0.56, 0.74, 0.92, 1.1])
+    cfg.TRAIN.update(TRAINABLE_SCOPE=scope, RESUME_SCOPE="base")
+    cfg.TRAIN.LR_SCHEDULER.update(SCHEDULER="sgdr", WARM_UP_EPOCHS=10)
+    cfg.TEST.TEST_SCOPE = [290, 300]
+    cfg.DATASET.DATASET_DIR = "./data/VOCdevkit"
+    cfg.EXP_DIR = f"./experiments/models/{name}"
+    cfg.LOG_DIR = f"./experiments/models/{name}/logs"
+    cfg.CHECKPOINTS_PREFIX = name
+    return cfg
+
+
+def fssd_vgg16_config() -> AttrDict:
+    """``experiments/cfgs/fssd_vgg16_train_voc.yml`` (FSSD300-VGG16 on VOC07+12)
+    over the defaults, written out for machines without PyYAML.
+    ``tests/test_torch_port_fssd.py`` holds it equal to the file."""
+    return _vgg16_voc_config(
+        "fssd", [[[22, 34, "S"], [512, 1024, 256]],
+                 [["", "S", "S", "S", "0", "0"], [256, 512, 512, 256, 256, 256]]],
+        "base,norm,extras,transforms,fusion,pyramids,loc,conf", "fssd_vgg16_voc")
+
+
+def rfb_vgg16_config() -> AttrDict:
+    """``experiments/cfgs/rfb_vgg16_train_voc.yml`` (RFBNet300-VGG16 on VOC07+12)
+    over the defaults, written out for machines without PyYAML.
+    ``tests/test_torch_port_rfb.py`` holds it equal to the file."""
+    return _vgg16_voc_config("rfb", [[22, "R", "S", "S", "", ""], [512, 1024, 512, 256, 256, 256]],
+                             "base,norm,extras,loc,conf", "rfb_vgg16_voc")
+
+
+#: the full-width configurations the port's tools take by short name:
+#: (the name that reports print, the config)
+MODELS = {
+    "vgg": ("SSD300-VGG16", default_config),
+    "lite": ("SSDLite-MobileNetV2-300", ssd_lite_mobilenetv2_config),
+    "fssd": ("FSSD-VGG16-300", fssd_vgg16_config),
+    "rfb": ("RFBNet-VGG16-300", rfb_vgg16_config),
+}
+
 #: process-global singleton, for reference-API parity
 cfg = default_config()
 

@@ -70,9 +70,12 @@ class ObjectDetector:
         # running mean from the bf16 input, which promotes to float32,
         # normalises in float32 and rounds the result to bf16 once
         # (ssds_tpu/models/layers.py:597-599); F.batch_norm on a bf16 input
-        # with float32 statistics does the same.
+        # with float32 statistics does the same. A head's FLOAT32_MODULES
+        # (FSSD's pyramid and predictors) compute in float32 in both packages.
+        keep = {id(m) for name in getattr(self.model, "FLOAT32_MODULES", ())
+                for m in self.model.get_submodule(name).modules()}
         for m in self.model.modules():
-            if isinstance(m, torch.nn.Conv2d):
+            if isinstance(m, torch.nn.Conv2d) and id(m) not in keep:
                 m.to(self.dtype)
         self.priors = torch.from_numpy(create_priors(model_cfg, self.feature_maps)).to(self.device)
         self.means = torch.tensor(cfg.DATASET.PIXEL_MEANS, dtype=torch.float32,

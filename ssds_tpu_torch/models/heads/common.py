@@ -32,7 +32,7 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ssds_tpu_torch.models.layers import Conv, LayerSpec, SepConvBNReLU
+from ssds_tpu_torch.models.layers import Conv, LayerSpec, SepConvBNReLU, build_layers
 
 
 def split_feature_layer(feature_layer) -> Tuple[List[int], List[Tuple[str, int]]]:
@@ -100,6 +100,29 @@ def finalize(phase: str, loc: torch.Tensor, conf: torch.Tensor):
     if phase == "eval":
         return loc.float(), torch.softmax(conf.float(), dim=-1)
     return loc, conf
+
+
+def build_extras(extras: Sequence[Tuple[LayerSpec, ...]],
+                 in_channels: int) -> Tuple[nn.ModuleList, Tuple[int, ...], List[int]]:
+    """Instantiate extra blocks as ONE flat list (the reference's ``extras``):
+    the modules, each block's length, and each block's output width."""
+    flat = [spec for block in extras for spec in block]
+    layers, widths = build_layers(flat, in_channels)
+    lengths = tuple(len(block) for block in extras)
+    ends = [sum(lengths[:i + 1]) - 1 for i in range(len(lengths))]
+    return layers, lengths, [widths[e] for e in ends]
+
+
+def run_extras(layers: nn.ModuleList, lengths: Sequence[int], x: torch.Tensor,
+               sources: List[torch.Tensor]) -> torch.Tensor:
+    """Chain the extra blocks off ``x``, appending each block's output to ``sources``."""
+    start = 0
+    for n in lengths:
+        for layer in layers[start:start + n]:
+            x = layer(x)
+        start += n
+        sources.append(x)
+    return x
 
 
 def run_layers(layers: nn.ModuleList, taps: Sequence[int], x: torch.Tensor):

@@ -14,20 +14,29 @@ are flat ``nn.Sequential`` stacks of (conv, BN, activation) entries, so their
 state-dict names are those of the reference's ``conv_bn`` / ``conv_dw`` /
 ``InvertedResidual.conv`` (``tests/ref_torch_skeletons.py``).
 
+The RFB heads' ``BasicConv`` (conv, BN, optional ReLU as named children
+``.conv`` / ``.bn``) takes square, non-square (1x3, 3x1) and dilated kernels.
+:func:`resize_bilinear` is ``jax.image.resize``'s bilinear resize, and
+:func:`no_autocast` opens the float32 region of a head that runs part of its
+work in float32 whatever the compute dtype (FSSD after its fusion BN).
+
 Only the plain float paths are ported; the JAX package's int8 serving and
 space-to-depth stem wait (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 LayerSpec = Callable[[int], nn.Module]
+Size2 = Union[int, Tuple[int, int]]  # a kernel, stride, padding or dilation: one int or (h, w)
 
 # flax.linen.Conv's default kernel init, lecun_normal: a normal truncated at
 # +-2 std, rescaled so the truncated distribution has variance 1 / fan_in.
@@ -58,8 +67,8 @@ class Conv(nn.Conv2d):
     casts every conv once for bf16 serving, where flax casts per call.
     """
 
-    def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 0, dilation: int = 1, groups: int = 1,
+    def __init__(self, in_channels: int, features: int, kernel: Size2 = 3, stride: Size2 = 1,
+                 padding: Size2 = 0, dilation: Size2 = 1, groups: int = 1,
                  use_bias: bool = True, relu: bool = False):
         super().__init__(in_channels, features, kernel, stride=stride, padding=padding,
                          dilation=dilation, groups=groups, bias=use_bias)
@@ -134,6 +143,25 @@ class BatchNorm(nn.BatchNorm2d):
         return y
 
 
+class Float32BatchNorm(BatchNorm):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` with no ``dtype``:
+    the input's dtype and the parameters' promote, so a bf16 input comes out
+    float32 (FSSD's fusion BN, ``ssds_tpu/models/heads/fssd.py:68``). The
+    input is widened first; the statistics and the normalisation are those of
+    :class:`BatchNorm` on the same values."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(torch.promote_types(x.dtype, self.weight.dtype)))
+
+
+def no_autocast(x: torch.Tensor):
+    """A region where autocast is off on ``x``'s device (nothing to switch
+    off on the ``meta`` device, where models are measured)."""
+    if torch.amp.is_autocast_available(x.device.type):
+        return torch.autocast(x.device.type, enabled=False)
+    return contextlib.nullcontext()
+
+
 _ACTIVATIONS = {"relu": ReLU, "relu6": ReLU6}
 
 
@@ -142,14 +170,37 @@ class ConvBNReLU(nn.Sequential):
     (``act`` relu / relu6; ``none`` leaves entry 2 out). Reference
     ``conv_bn``; ``ssds_tpu/models/layers.py:543``."""
 
-    def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
-                 padding: int = 1, groups: int = 1, act: str = "relu"):
+    def __init__(self, in_channels: int, features: int, kernel: Size2 = 3, stride: int = 1,
+                 padding: Size2 = 1, dilation: int = 1, groups: int = 1, act: str = "relu"):
         layers = [Conv(in_channels, features, kernel, stride=stride, padding=padding,
-                       groups=groups, use_bias=False), BatchNorm(features)]
+                       dilation=dilation, groups=groups, use_bias=False), BatchNorm(features)]
         if act != "none":
             layers.append(_ACTIVATIONS[act]())
         super().__init__(*layers)
         self.out_channels = features
+
+
+class BasicConv(nn.Module):
+    """conv (no bias) -> :class:`BatchNorm` -> ReLU when ``relu``, as the
+    children ``.conv`` and ``.bn``: the reference RFB's ``BasicConv``
+    (``tests/ref_torch_skeletons.py``). Kernels may be non-square with
+    per-axis padding (``BasicRFB_a``'s 1x3 and 3x1) and dilated; the JAX
+    package's counterpart is ``ConvBNReLU`` in ``BasicRFB`` and an inline
+    ``nn.Conv`` + ``nn.BatchNorm`` in ``BasicRFB_a``
+    (``ssds_tpu/models/heads/rfb.py:155-240``)."""
+
+    def __init__(self, in_channels: int, features: int, kernel: Size2 = 3, stride: int = 1,
+                 padding: Size2 = 1, dilation: int = 1, relu: bool = True):
+        super().__init__()
+        self.conv = Conv(in_channels, features, kernel, stride=stride, padding=padding,
+                         dilation=dilation, use_bias=False)
+        self.bn = BatchNorm(features)
+        self.relu = relu
+        self.out_channels = features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.relu else x
 
 
 class SepConvBNReLU(nn.Sequential):
@@ -188,6 +239,72 @@ class InvertedResidual(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv(x)
         return y + x if self.residual else y
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """``[n_in, n_out]`` float32 weights of ``jax.image.resize``'s bilinear
+    (triangle) kernel along one axis: half-pixel centres, the kernel widened
+    by ``n_in / n_out`` when shrinking (antialiasing), each output's weights
+    renormalised to sum to 1 (which clamps at the edges), with the float32
+    operations of ``jax._src.image.scale.compute_weight_mat``. Upsampling,
+    the weights equal JAX's bit for bit; shrinking, XLA's compiled kernel
+    rounds some of them one ulp apart."""
+    f32 = np.float32
+    inv = f32(1.0 / (n_out / n_in))
+    widen = max(inv, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
+                   / widen)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+_RESIZE_CACHE: dict = {}
+
+
+def _resize_matrix(n_in: int, n_out: int, x: torch.Tensor) -> torch.Tensor:
+    """:func:`_resize_weights` rounded to ``x``'s dtype, then held in float32
+    on ``x``'s device; made once for each size, dtype and device."""
+    key = (n_in, n_out, x.dtype, x.device)
+    if key not in _RESIZE_CACHE:
+        w = torch.from_numpy(_resize_weights(n_in, n_out)).to(x.dtype).float()
+        _RESIZE_CACHE[key] = w.to(x.device)
+    return _RESIZE_CACHE[key]
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """NCHW bilinear resize to ``size``: ``jax.image.resize(..., "bilinear")``
+    (``ssds_tpu/models/layers.py:695``), what the JAX package's FSSD calls.
+
+    Upsampling, this is ``F.interpolate(mode="bilinear", align_corners=False)``
+    in float32; shrinking, it antialiases as JAX does (``antialias=True``).
+    Each axis whose size changes is one contraction with its weight matrix,
+    computed in float32 with the weights rounded to ``x``'s dtype and the
+    result rounded to it after each axis, in the order ``jnp.einsum`` picks
+    (the fewer multiply-adds; rows first on a tie): in bf16 that is what
+    ``jax.image.resize`` gives on the CPU, bit for bit. Autocast is off
+    inside, so the result keeps ``x``'s dtype.
+    """
+    h, w = x.shape[2], x.shape[3]
+    out_h, out_w = int(size[0]), int(size[1])
+
+    def rows(y):
+        if out_h == h:
+            return y
+        return torch.matmul(_resize_matrix(h, out_h, x).t(), y.float()).to(x.dtype)
+
+    def cols(y):
+        if out_w == w:
+            return y
+        return torch.matmul(y.float(), _resize_matrix(w, out_w, x)).to(x.dtype)
+
+    with no_autocast(x):
+        if w * out_h * (h + out_w) <= h * out_w * (w + out_h):
+            return cols(rows(x))
+        return rows(cols(x))
 
 
 def build_layers(specs: Sequence[LayerSpec],

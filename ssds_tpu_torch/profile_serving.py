@@ -2,7 +2,8 @@
 
 For each batch size (default 1 and 32) it serves seeded random uint8 images
 through :class:`~ssds_tpu_torch.detector.ObjectDetector` on the default
-SSD300-VGG16 config (``--model lite``: SSDLite-MobileNetV2-300) and reports:
+SSD300-VGG16 config (``--model lite``: SSDLite-MobileNetV2-300; ``fssd``:
+FSSD-VGG16-300; ``rfb``: RFBNet-VGG16-300, ``config.MODELS``) and reports:
 
 - stage times (CUDA events, mean of ``--iters`` after warm-up): host-to-device
   upload, the conv forward (mean subtraction to softmax), ``detect``, the
@@ -89,7 +90,7 @@ def profile_batch(det, batch, iters, seed):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite"), default="vgg")
+    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb"), default="vgg")
     parser.add_argument("--batches", default="1,32")
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
@@ -98,12 +99,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a GPU (torch.cuda.is_available() is False)")
 
-    from ssds_tpu_torch.config import default_config, ssd_lite_mobilenetv2_config
+    from ssds_tpu_torch.config import MODELS, default_config
     from ssds_tpu_torch.detector import ObjectDetector
 
     cfg = default_config()
-    if args.model == "lite":
-        cfg.MODEL.update(ssd_lite_mobilenetv2_config().MODEL)
+    cfg.MODEL.update(MODELS[args.model][1]().MODEL)
     det = ObjectDetector(cfg, device="cuda", seed=args.seed)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]

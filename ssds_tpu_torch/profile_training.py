@@ -2,8 +2,9 @@
 
 The training counterpart of :mod:`ssds_tpu_torch.profile_serving` (and of the
 JAX package's ``tools/step_profile.py``). On the default SSD300-VGG16 config
-(bf16 forward, SGD with momentum and weight decay; ``--model lite``:
-SSDLite-MobileNetV2-300 with its yml's SGD) it runs the train step of
+(bf16 forward, SGD with momentum and weight decay; ``--model lite``,
+``fssd``, ``rfb``: SSDLite-MobileNetV2-300, FSSD-VGG16-300, RFBNet-VGG16-300
+with their yml's SGD, ``config.MODELS``) it runs the train step of
 :func:`ssds_tpu_torch.solver.build_train_step` at ``--batch`` (default 32) over
 one batch drawn with :mod:`ssds_tpu_torch.tools.synth_voc` (1-3 GT boxes an
 image), and reports:
@@ -17,8 +18,15 @@ image), and reports:
   the step's shapes (device time: launches queued behind a sleep kernel), the
   candidates for a hand-written kernel;
 - over a ``torch.profiler`` window of whole steps: the device's busy share
-  (summed kernel time over wall time, an upper bound where kernels overlap)
-  and the top kernels by device time.
+  (summed kernel time over wall time, an upper bound where kernels overlap),
+  the top kernels by device time, and every kernel's time summed by kind
+  (:data:`KINDS`: convolutions and GEMMs, BatchNorm, layout transposes and
+  copies, the rest);
+- for a head that computes part of its work in float32 whatever the compute
+  dtype (FSSD's fusion BN, pyramid and predictors,
+  ``FLOAT32_MODULES``): that part's forward and backward alone at the
+  step's shapes, as it runs (float32) and, for comparison only, under bf16
+  autocast.
 
 Needs a GPU; ``--out`` also writes every number as JSON.
 """
@@ -35,6 +43,57 @@ import numpy as np
 import torch
 
 STAGES = ("upload", "forward", "match_loss", "backward", "optimizer")
+# kernel kinds, by the first pattern found in a kernel's name (lower case)
+KINDS = (("conv_gemm", ("conv", "gemm", "xmma", "wgrad", "dgrad", "cutlass", "sm90_", "sm80_")),
+         ("batchnorm", ("batch_norm", "batchnorm", "bn_")),
+         ("layout", ("transpose", "nchwtonhwc", "nhwctonchw", "permute", "copy")))
+
+
+def kernel_kinds(kernels, iters: int) -> dict:
+    """Device ms a step of each kind of :data:`KINDS` (and ``other``)."""
+    out = {k: 0.0 for k, _ in KINDS}
+    out["other"] = 0.0
+    for e in kernels:
+        name = e.key.lower()
+        kind = next((k for k, pats in KINDS if any(p in name for p in pats)), "other")
+        out[kind] += e.device_time_total / 1e3 / iters
+    return out
+
+
+def float32_region(solver, batch: dict, iters: int) -> dict:
+    """FSSD's float32 part (fusion BN, pyramid, predictors) alone at the
+    step's shapes: forward and backward from the fused map, device ms, as it
+    runs (autocast off, float32) and under bf16 autocast."""
+    from ssds_tpu_torch.models.heads.common import multibox, run_layers, run_extras
+    from ssds_tpu_torch.tools import time_cuda_queued
+
+    model = solver.model
+    dev = solver._upload(batch)
+    with torch.no_grad(), torch.autocast("cuda", dtype=solver.compute_dtype):
+        x = (dev["images"].float() - solver.means).permute(0, 3, 1, 2).contiguous()
+        sources, x = run_layers(model.base, model.taps, x)
+        run_extras(model.extras, model.extra_blocks, x, sources)
+        fused = model.fuse(sources)
+    fused.requires_grad_()
+
+    def part():
+        sources = model.run_pyramid(model.norm(fused))
+        loc, conf = multibox(sources, model.loc, model.conf, model.num_classes)
+        (loc.float().sum() + conf.float().sum()).backward()
+
+    def part_bf16():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = model.norm(fused).bfloat16()
+            sources = []
+            for layer in model.pyramids:
+                y = layer(y)
+                sources.append(y)
+            loc, conf = multibox(sources, model.loc, model.conf, model.num_classes)
+        (loc.float().sum() + conf.float().sum()).backward()
+
+    return {"fused_shape": list(fused.shape), "fused_dtype": str(fused.dtype),
+            "float32_ms": time_cuda_queued(part, iters),
+            "bf16_autocast_ms": time_cuda_queued(part_bf16, iters)}
 
 
 def synth_batch(batch: int, size: int, max_gt: int, seed: int) -> dict:
@@ -124,6 +183,8 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
                       and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: e.device_time_total, reverse=True)
     busy_us = sum(e.device_time_total for e in kernels)
+    if getattr(model, "FLOAT32_MODULES", ()):
+        parts["float32_region"] = float32_region(solver, batch, iters)
     return {
         "batch": int(batch["images"].shape[0]), "iters": iters,
         "loss_l": float(ll.detach()), "loss_c": float(lc.detach()),
@@ -133,6 +194,7 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
         "parts": parts,
         "device_busy_share_upper_bound": busy_us / wall_us,
         "device_ms_per_step": busy_us / 1e3 / iters,
+        "kernel_kinds_ms": kernel_kinds(kernels, iters),
         "top_kernels": [{"name": e.key[:100], "calls": e.count,
                          "device_ms": e.device_time_total / 1e3 / iters} for e in kernels[:25]],
     }
@@ -140,7 +202,7 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite"), default="vgg")
+    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb"), default="vgg")
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
@@ -149,18 +211,16 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_training: needs a GPU (torch.cuda.is_available() is False)")
 
-    from ssds_tpu_torch.config import default_config, ssd_lite_mobilenetv2_config
+    from ssds_tpu_torch.config import MODELS, default_config
     from ssds_tpu_torch.solver import Solver
     from ssds_tpu_torch.tools import card_line
 
     card = card_line()
-    cfg = default_config()  # SSD300-VGG16, VOC, bf16 forward, SGD
-    name = "SSD300-VGG16"
-    if args.model == "lite":
-        lite = ssd_lite_mobilenetv2_config()
-        cfg.MODEL.update(lite.MODEL)
-        cfg.TRAIN.OPTIMIZER.update(lite.TRAIN.OPTIMIZER)
-        name = "SSDLite-MobileNetV2-300"
+    cfg = default_config()  # VOC, bf16 forward, SGD
+    name, make = MODELS[args.model]
+    src = make()
+    cfg.MODEL.update(src.MODEL)
+    cfg.TRAIN.OPTIMIZER.update(src.TRAIN.OPTIMIZER)
     cfg.TRAIN.BATCH_SIZE = args.batch
     with tempfile.TemporaryDirectory() as exp:
         cfg.EXP_DIR = exp
@@ -176,7 +236,15 @@ def main(argv=None):
           + f" (sum {r['split_sum_ms']:.3f}); device busy <= "
           f"{r['device_busy_share_upper_bound']:.3f}, {r['device_ms_per_step']:.3f} device-ms "
           "a step", flush=True)
-    print("  alone: " + ", ".join(f"{k} {v:.3f}" for k, v in r["parts"].items()))
+    print("  alone: " + ", ".join(f"{k} {v:.3f}" for k, v in r["parts"].items()
+                                  if isinstance(v, float)))
+    if "float32_region" in r["parts"]:
+        f = r["parts"]["float32_region"]
+        print(f"  float32 part (fusion BN, pyramid, head) forward+backward on {f['fused_shape']}: "
+              f"{f['float32_ms']:.3f} ms as run, {f['bf16_autocast_ms']:.3f} ms under bf16 "
+              "autocast (comparison only)")
+    print("  device ms a step by kind: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in r["kernel_kinds_ms"].items()))
     for k in r["top_kernels"][:15]:
         print(f"  {k['device_ms']:8.3f} ms  x{k['calls'] // args.iters:<4} {k['name']}")
     if args.out:

@@ -15,8 +15,8 @@ package's optax chains (:func:`configure_optimizer`) with the LR set each
 step from the step-indexed schedule. A step returns device scalars and never
 waits for the device.
 
-Differences from the JAX solver: one process (no DDP yet); SSD heads only
-(the YOLO heads and device augmentation are not ported); no
+Differences from the JAX solver: one process (no DDP yet); the SSD, FSSD
+and RFB heads (the YOLO heads and device augmentation are not ported); no
 ``visualize_epoch``. After a resume the port continues the LR schedule from
 the restored step, as ``ssds_tpu/solver.py:366-367`` intends; the JAX
 optimizer restarts its schedule count at 0 (ROADMAP.md §3).
@@ -99,11 +99,13 @@ def configure_lr_scheduler(train_cfg, steps_per_epoch: int) -> Callable[[int], f
     return schedule
 
 
-def trainable_mask(names: Iterable[str], scope: str) -> Dict[str, str]:
+def trainable_mask(names: Iterable[str], scope: str, aliases=None) -> Dict[str, str]:
     """``{name: 'train' | 'freeze'}`` from TRAINABLE_SCOPE (reference
-    ``trainable_param``). A scope that matches nothing trains everything,
-    with a warning when the scope was not empty."""
-    labels = {n: ("train" if ckpt_lib.path_in_scope(n, scope) else "freeze") for n in names}
+    ``trainable_param``), with the model's scope ``aliases``
+    (:func:`ssds_tpu_torch.checkpoint.path_in_scope`). A scope that matches
+    nothing trains everything, with a warning when the scope was not empty."""
+    labels = {n: ("train" if ckpt_lib.path_in_scope(n, scope, aliases) else "freeze")
+              for n in names}
     if all(v == "freeze" for v in labels.values()):
         if str(scope).strip():
             print(f"warning: TRAINABLE_SCOPE '{scope}' matches no parameter "
@@ -184,7 +186,8 @@ class RMSprop(torch.optim.Optimizer):
                 p.sub_(group["lr"] * u)
 
 
-def configure_optimizer(train_cfg, named_params: Iterable[Tuple[str, torch.nn.Parameter]]):
+def configure_optimizer(train_cfg, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
+                        scope_aliases=None):
     """The optimizer of ``cfg.TRAIN.OPTIMIZER`` over ``named_params``, equal to
     the JAX package's optax chains (``ssds_tpu/solver.py:152-213``):
 
@@ -200,6 +203,7 @@ def configure_optimizer(train_cfg, named_params: Iterable[Tuple[str, torch.nn.Pa
     trainable parameters under its scope that no earlier entry took, into a
     param group of its own whose ``mult`` scales the LR. The LR itself and
     ``CLIP_GRADIENT`` are applied per step by :func:`apply_gradients`.
+    ``scope_aliases`` is the model's ``SCOPE_ALIASES``, for both scopes.
     """
     o = train_cfg.OPTIMIZER
     kind = str(o.OPTIMIZER)
@@ -207,13 +211,13 @@ def configure_optimizer(train_cfg, named_params: Iterable[Tuple[str, torch.nn.Pa
     momentum = float(o.MOMENTUM)
     eps = float(o.get("EPS", 1e-8))
     named = list(named_params)
-    labels = trainable_mask([n for n, _ in named], str(train_cfg.TRAINABLE_SCOPE))
+    labels = trainable_mask([n for n, _ in named], str(train_cfg.TRAINABLE_SCOPE), scope_aliases)
     mults = {"train": 1.0}
     for i, (dscope, mult) in enumerate(o.get("DIFFERENTIAL_LEARNING_RATE") or []):
         key = f"dlr{i}"
         mults[key] = float(mult)
         for n, lab in labels.items():
-            if lab == "train" and ckpt_lib.path_in_scope(n, str(dscope)):
+            if lab == "train" and ckpt_lib.path_in_scope(n, str(dscope), scope_aliases):
                 labels[n] = key
     for n, p in named:
         p.requires_grad_(labels[n] != "freeze")
@@ -363,7 +367,8 @@ class Solver:
         """Schedule and optimizer; the step counter continues from the
         restored epoch, so the schedule (warm-up included) does too."""
         self.lr_schedule = configure_lr_scheduler(self.cfg.TRAIN, steps_per_epoch)
-        self.optimizer = configure_optimizer(self.cfg.TRAIN, self.model.named_parameters())
+        self.optimizer = configure_optimizer(self.cfg.TRAIN, self.model.named_parameters(),
+                                             getattr(self.model, "SCOPE_ALIASES", None))
         self.step = self.start_epoch * steps_per_epoch
 
     def restore(self):
@@ -377,7 +382,8 @@ class Solver:
             sd = ckpt_lib.resume_checkpoint(self.model.state_dict(), paths[-1], "")
         elif self.cfg.RESUME_CHECKPOINT:
             sd = ckpt_lib.resume_checkpoint(self.model.state_dict(), self.cfg.RESUME_CHECKPOINT,
-                                            str(self.cfg.TRAIN.RESUME_SCOPE))
+                                            str(self.cfg.TRAIN.RESUME_SCOPE),
+                                            getattr(self.model, "SCOPE_ALIASES", None))
         else:
             return
         self.model.load_state_dict(sd)

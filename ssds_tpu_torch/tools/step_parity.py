@@ -1,6 +1,6 @@
 """One float32 train step on the card against the same step on the CPU.
 
-    python -m ssds_tpu_torch.tools.step_parity [--model vgg|lite] [--batch N]
+    python -m ssds_tpu_torch.tools.step_parity [--model vgg|lite|fssd|rfb] [--batch N]
         [--seed 0] [--out PATH]
 
 The ``Solver``'s own train step (SGD, the config's LR, momentum and decay),
@@ -13,9 +13,9 @@ and as its largest error over the largest update of the model; and each
 running statistic after the step (BatchNorm models): a mean's error in
 units of its channel's standard deviation, a variance's relative to itself.
 
-Models: ``vgg`` is SSD300-VGG16 (the default config), ``lite`` is
-SSDLite-MobileNetV2-300 (``config.ssd_lite_mobilenetv2_config``), both at
-full width. Needs a CUDA device. ``tests/torch_port_step_causes.py`` runs
+Models (``config.MODELS``): ``vgg`` is SSD300-VGG16 (the default config),
+``lite`` SSDLite-MobileNetV2-300, ``fssd`` FSSD-VGG16-300 and ``rfb``
+RFBNet-VGG16-300, all at full width. Needs a CUDA device. ``tests/torch_port_step_causes.py`` runs
 the same comparison under the changes that name the cause of a gap.
 """
 
@@ -33,15 +33,14 @@ import torch
 
 
 def config(model: str, root: str, exp: str):
-    """The default config (``vgg``) or the SSDLite-MobileNetV2-300 one's model
-    and optimizer (``lite``), over the synthetic VOC tree at ``root``."""
-    from ssds_tpu_torch.config import default_config, ssd_lite_mobilenetv2_config
+    """The default config with the model and optimizer of ``config.MODELS[model]``,
+    over the synthetic VOC tree at ``root``."""
+    from ssds_tpu_torch.config import MODELS, default_config
 
     cfg = default_config()
-    if model == "lite":
-        lite = ssd_lite_mobilenetv2_config()
-        cfg.MODEL.update(lite.MODEL)
-        cfg.TRAIN.OPTIMIZER.update(lite.TRAIN.OPTIMIZER)
+    src = MODELS[model][1]()
+    cfg.MODEL.update(src.MODEL)
+    cfg.TRAIN.OPTIMIZER.update(src.TRAIN.OPTIMIZER)
     cfg.DATASET.update(DATASET_DIR=root, TRAIN_SETS=[["2007", "trainval"]],
                        TEST_SETS=[["2007", "test"]], PROB=-1, NUM_WORKERS=0)
     cfg.TRAIN.LR_SCHEDULER.WARM_UP_EPOCHS = 0
@@ -150,7 +149,7 @@ def main(argv=None):
     from ssds_tpu_torch.tools import card_line, need_cuda
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite"), default="vgg")
+    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb"), default="vgg")
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default="")

@@ -502,6 +502,79 @@ def test_ssd_lite_train_step_on_the_card_equals_cpu(cuda):
     assert r["stats_rel_err_max"] <= chip_smoke.LITE_STATS_RTOL
 
 
+def _head_model(kind, seed=3):
+    """FSSD-VGG16-300 or RFBNet-VGG16-300 at full width on the CPU, float32,
+    with random running statistics."""
+    from ssds_tpu_torch.config import MODELS
+    from ssds_tpu_torch.models.builder import create_model, init_model
+
+    model = init_model(create_model(MODELS[kind][1]().MODEL)[0], seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith("running_mean"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+            elif name.endswith("running_var"):
+                b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
+    return model
+
+
+@pytest.mark.parametrize("kind", ["fssd", "rfb"])
+def test_fssd_and_rfb_300_forward_on_the_card_equals_cpu(cuda, kind):
+    """The float32 eval forward at full width, card (TF32 off) against CPU:
+    within rtol / atol 1e-4, the bound ``chip_smoke.py`` holds every forward to."""
+    model = _head_model(kind)
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 50, (2, 3, 300, 300))
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = model(x, phase="eval")
+        got = model.to(cuda)(x.to(cuda), phase="eval")
+    assert got[0].shape == (2, 8732, 4)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+def test_fssd_runs_after_the_fusion_bn_in_float32_under_autocast(cuda):
+    """Training's bf16 autocast on the card: the backbone's taps are bf16; the
+    fusion BN's output, the pyramid sources and the raw (loc, conf) are
+    float32, as the JAX package computes them."""
+    from ssds_tpu_torch.models.heads.common import run_layers
+
+    model = _head_model("fssd").to(cuda).train()
+    x = torch.randn(2, 3, 300, 300, device=cuda) * 50
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        taps, _ = run_layers(model.base, model.taps, x)
+        sources = model(x, phase="feature")
+        loc, conf = model(x, phase="train")
+    assert all(t.dtype == torch.bfloat16 for t in taps)
+    assert [tuple(s.shape[2:]) for s in sources] == [(38, 38), (19, 19), (10, 10), (5, 5),
+                                                     (3, 3), (1, 1)]
+    assert all(s.dtype == torch.float32 for s in sources)
+    assert loc.dtype == conf.dtype == torch.float32
+
+
+@pytest.mark.parametrize("kind", ["fssd", "rfb"])
+def test_fssd_and_rfb_detect_rows_identical_with_kernel_and_plain_nms(cuda, kind):
+    """bf16 serving at full width: ``predict_batch`` launches the kernel once,
+    and the same loc / conf through detect with the kernel and with the
+    plain NMS give identical rows at batch 1 and 4."""
+    from ssds_tpu_torch.config import MODELS
+    from ssds_tpu_torch.detector import ObjectDetector
+
+    det = ObjectDetector(MODELS[kind][1](), device=cuda, seed=1)
+    imgs = np.random.default_rng(1).integers(0, 256, (4, 300, 300, 3), dtype=np.uint8)
+    before = cuda_nms.nms_mask.launches
+    out = det.predict_batch(list(imgs), threshold=0.01)
+    assert cuda_nms.nms_mask.launches == before + 1 and len(out) == 4
+    for batch in (1, 4):
+        with torch.no_grad():
+            loc, conf = det.forward(torch.from_numpy(imgs[:batch]).to(cuda))
+            rows = postprocess.detect(loc, conf, det.priors, det.post)
+            with mock.patch.object(postprocess, "nms_mask", nms_mask_torch):
+                plain = postprocess.detect(loc, conf, det.priors, det.post)
+        assert rows.shape == (batch, 21, 100, 5) and torch.equal(rows, plain)
+
+
 @pytest.mark.parametrize("kind", ["random", "dense_overlap", "tied_scores"])
 def test_kernel_bit_identical_at_the_coco_eval_shape(cuda, kind):
     """``[64 x 81, 200]``: COCO's eval at ``TEST.BATCH_SIZE`` 64."""

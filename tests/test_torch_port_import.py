@@ -48,7 +48,9 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.models.heads.ssd_lite", "ssds_tpu_torch.tools.step_parity",
                    "ssds_tpu_torch.data.coco", "ssds_tpu_torch.data.coco_eval",
                    "ssds_tpu_torch.data.image_ops", "ssds_tpu_torch.data.native",
-                   "ssds_tpu_torch.tools.synth_coco"):
+                   "ssds_tpu_torch.tools.synth_coco", "ssds_tpu_torch.models.heads.fssd",
+                   "ssds_tpu_torch.models.heads.fssd_lite", "ssds_tpu_torch.models.heads.rfb",
+                   "ssds_tpu_torch.models.heads.rfb_lite"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,
