@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD and RFB paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB and YOLO paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -101,12 +101,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    float32 in bf16 serving (weights and sources); a float32 forward, card
    against CPU; one float32 step at batch 4 (``HEAD_F32_BATCH``), card
    against CPU (``HEADS``' limits); the batch-32 train step, batch-1
-   ``predict`` p50 / p90 and batch-32 ``predict_batch`` img/s.
+   ``predict`` p50 / p90 and batch-32 ``predict_batch`` img/s;
+12. YOLOv3-DarkNet53-416 and YOLOv2-DarkNet19-416, each as phase 11 drives
+   its heads (``drive_model``): the yml's model at full width and depth
+   (``config.yolo_v3_darknet53_config()`` / ``yolo_v2_darknet19_config()``:
+   VOC, 20 classes and no background logit, the paper anchors, bf16), its
+   batch (16 / 32), SGD and sgdr schedule, over the synthetic VOC drawn at
+   416 px, cut as phase 11 (64 / 32 images, ``PROB -1``, ``TEST_SCOPE`` the
+   last epoch) but for the epochs, 20 / 40 (80 steps each), and the 10
+   warm-up epochs, kept at their step count over VOC07+12 (``YOLO_EPOCHS``
+   says why). Checked besides: 10,647 / 845
+   decoded boxes an image and 72 / 22 BatchNorms, the loss falling over the
+   epochs, the eval, test and serving through ``detect_decoded`` with the
+   NMS kernel (rows identical with the plain NMS); YOLOv2's reorg on the
+   card in the JAX package's channel order (``pixel_unshuffle``'s is not), and
+   its warm-up's seen images ``step * 32`` at every train step; the float32
+   forward (the raw outputs of two test images) and one float32 step at
+   batch 4, card against CPU (``YOLO``'s limits); the train step at the
+   yml's batch,
+   batch-1 ``predict`` p50 / p90 and batch-32 ``predict_batch`` img/s.
 
 Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
-``{"coco": {...}}`` and ``{"heads": {"fssd": {...}, "rfb": {...}}}``, then
-``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4, 9, 10
-and 11's serving, ``launches_by_path`` every path), the card's name and
+``{"coco": {...}}``, ``{"heads": {"fssd": {...}, "rfb": {...}}}`` and
+``{"yolo": {"yolo_v3": {...}, "yolo_v2": {...}}}``, then
+``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4, 9, 10,
+11 and 12's serving, ``launches_by_path`` every path), the card's name and
 power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
 line, the NMS entry's ``ms`` is device time alone (launches queued behind a
@@ -117,6 +136,7 @@ sleep kernel: at a few µs a launch, back-to-back calls time the host); its
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -186,6 +206,22 @@ COCO_NMS_SHAPES = [(81, 200), (5184, 200)]
 # float32 algorithms, as phase 8's base.24), statistics 2.1e-6 / 1.3e-6.
 HEAD_EPOCHS, HEAD_F32_BATCH = 3, 4
 HEADS = {"fssd": (7, 2e-2, 5e-5), "rfb": (47, 2e-2, 5e-5)}
+# phase 12: YOLOv3-DarkNet53-416 and YOLOv2-DarkNet19-416, each with its
+# decoded boxes an image (3 x (52^2 + 26^2 + 13^2) and 5 x 13^2), its
+# BatchNorms (DarkNet-53's 52 and the head's 20; DarkNet-19's 18 and the
+# head's 4) and its float32 step's limits, card (TF32 off) against CPU at
+# HEAD_F32_BATCH: phase 11's.
+YOLO = {"yolo_v3": (10647, 72, 2e-2, 5e-5), "yolo_v2": (845, 22, 2e-2, 5e-5)}
+# Epochs: 80 steps each over TRAIN_IMAGES (batch 16 / 32). With the ymls' 10
+# warm-up epochs counted over the 64 images, the LR reaches 1e-3 by step 40
+# and YOLOv3 diverges (NaN by epoch 10, NVIDIA H100 80GB HBM3); so the
+# warm-up keeps its step count over VOC07+12's 16,551 trainval images, and
+# these steps run at the LR of the full run's first steps. Fewer than ~50
+# steps leave the running statistics short of the batch statistics (0.9^n
+# of the init's), which DarkNet-53's 72 BatchNorms compound into an
+# eval-mode network whose raw outputs reach 1e9 (12 steps).
+YOLO_EPOCHS = {"yolo_v3": 20, "yolo_v2": 40}
+VOC0712_TRAINVAL = 16551
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -488,13 +524,15 @@ def train_step_ms(solver):
     return (time.perf_counter() - t0) / 20 * 1e3
 
 
-def drive_model(what, make_cfg, seed, dev, card, log, *, priors, batchnorms, f32_batch,
-                update_tol, stats_rtol):
+def drive_model(what, make_cfg, seed, dev, card, log, *, num_boxes, batchnorms, f32_batch,
+                update_tol, stats_rtol, loss_falls=False):
     """Train, resume, deploy, serve and time one model over the synthetic VOC
-    (phases 9 and 11); ``make_cfg(root, exp)`` gives its config. Checks the
-    prior and BatchNorm counts, and, for a head with ``FLOAT32_MODULES``
-    (FSSD), that bf16 serving keeps their weights and the pyramid sources in
-    float32. Returns the numbers."""
+    (phases 9, 11 and 12), its images drawn at the model's input size;
+    ``make_cfg(root, exp)`` gives its config. Checks the box count (the
+    priors, or a YOLO head's decoded boxes an image) and the BatchNorm count,
+    with ``loss_falls`` that the last epoch's mean loss is below the first's,
+    and, for a head with ``FLOAT32_MODULES`` (FSSD), that bf16 serving keeps
+    their weights and the pyramid sources in float32. Returns the numbers."""
     from ssds_tpu_torch.data import factory
     from ssds_tpu_torch.data.factory import detection_collate
     from ssds_tpu_torch.detector import ObjectDetector
@@ -508,18 +546,22 @@ def drive_model(what, make_cfg, seed, dev, card, log, *, priors, batchnorms, f32
 
     out = {"card": card}
     t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp, \
-            mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
         root, exp = os.path.join(tmp, "VOCdevkit"), os.path.join(tmp, "exp")
-        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
         cfg = make_cfg(root, exp)
-        epochs = int(cfg.TRAIN.MAX_EPOCHS)
+        size = int(cfg.MODEL.IMAGE_SIZE[0])
+        stack.enter_context(mock.patch.dict(factory.dataset_map,
+                                            {"voc": in_memory_voc(seed, size)}))
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES, size=size)
+        epochs, batch = int(cfg.TRAIN.MAX_EPOCHS), int(cfg.TRAIN.BATCH_SIZE)
         writer = ScalarWriter()
         solver = Solver(cfg, device=dev, writer=writer, seed=seed)
         bns = [m for m in solver.model.modules() if isinstance(m, BatchNorm)]
-        if solver.priors.shape != (priors, 4) or len(bns) != batchnorms:
-            raise AssertionError(f"{what}: {tuple(solver.priors.shape)} priors, "
-                                 f"{len(bns)} BatchNorms")
+        n_boxes = (solver.model.num_boxes(solver.feature_maps) if solver.priors is None
+                   else solver.priors.shape[0])
+        out["boxes"], out["batchnorms"] = n_boxes, len(bns)
+        if n_boxes != num_boxes or len(bns) != batchnorms:
+            raise AssertionError(f"{what}: {n_boxes} boxes an image, {len(bns)} BatchNorms")
         var0 = [m.running_var.clone() for m in bns]
         resumed = None
         try:
@@ -535,7 +577,7 @@ def drive_model(what, make_cfg, seed, dev, card, log, *, priors, batchnorms, f32
             out["eval_map"] = writer.scalars["Eval/mAP"][-1][1]
             moved = sum(not torch.equal(m.running_var, v) for m, v in zip(bns, var0))
             out["bn_running_var_moved"] = moved
-            log(f"trained {what} bf16 batch 32: {len(out['epoch_loss'])} epochs, "
+            log(f"trained {what} bf16 batch {batch}: {len(out['epoch_loss'])} epochs, "
                 f"{solver.step} steps in {out['train_model_s']:.1f} s; epoch mean loss "
                 f"{[round(v, 4) for v in out['epoch_loss']]}; eval mAP {out['eval_map']:.4f}; "
                 f"running variances moved in {moved}/{len(bns)} BatchNorms; nms kernel launches "
@@ -544,6 +586,8 @@ def drive_model(what, make_cfg, seed, dev, card, log, *, priors, batchnorms, f32
                 raise AssertionError(f"a loss is not finite: {writer.scalars}")
             if len(out["epoch_loss"]) != epochs or moved != len(bns):
                 raise AssertionError(f"{len(out['epoch_loss'])} epochs, {moved} BNs moved")
+            if loss_falls and not out["epoch_loss"][-1] < out["epoch_loss"][0]:
+                raise AssertionError(f"{what}: the loss did not fall: {out['epoch_loss']}")
             if not (0.0 <= out["eval_map"] <= 1.0 and out["nms_launches_eval"] > 0):
                 raise AssertionError(f"eval: mAP {out['eval_map']}, "
                                      f"{out['nms_launches_eval']} nms launches")
@@ -600,10 +644,12 @@ def drive_model(what, make_cfg, seed, dev, card, log, *, priors, batchnorms, f32
             for name, group in (("batch 1", singles[:1]), ("batch 32", batch32)):
                 x = torch.from_numpy(np.stack(group)).to(dev)
                 with torch.no_grad():
-                    loc, conf = det.forward(x)
-                    rows = postprocess.detect(loc, conf, det.priors, det.post)
+                    served_out = det.forward(x)
+                    if served_out[0].shape[1] != num_boxes:
+                        raise AssertionError(f"{what}: {served_out[0].shape[1]} boxes served")
+                    rows = det.postprocess(served_out)
                     with mock.patch.object(postprocess, "nms_mask", nms_mask_torch):
-                        plain_rows = postprocess.detect(loc, conf, det.priors, det.post)
+                        plain_rows = det.postprocess(served_out)
                 assert rows.shape == (len(group), 21, 100, 5) and torch.isfinite(rows).all()
                 if not torch.equal(rows, plain_rows):
                     raise AssertionError(f"{what} {name}: detect rows with the kernel != plain")
@@ -625,30 +671,39 @@ def drive_model(what, make_cfg, seed, dev, card, log, *, priors, batchnorms, f32
                 if dtypes != {"torch.float32"} or any(t.dtype != torch.float32 for t in sources):
                     raise AssertionError(f"{what}: the layers after the fusion BN are not float32")
 
-            # float32 forward on the card (TF32 off) against the CPU, checkpoint weights
+            # float32 forward on the card (TF32 off) against the CPU, checkpoint weights:
+            # (loc, conf) of two noise images, or a YOLO head's raw outputs of two
+            # test images. The decode's exp turns a raw error into the same relative
+            # error of a box (1e-4 at a raw tw of 7, measured), and noise lies far
+            # outside the synthetic data: the barely trained eval-mode network's tw
+            # reaches 20 on it, boxes 1e8.
             cfg32 = copy.deepcopy(dcfg)
             cfg32.MODEL.HALF_PRECISION = False
-            x = torch.from_numpy(np.stack(singles[:2]))
+            yolo = det.priors is None
+            x = torch.from_numpy(imgs[:2] if yolo else np.stack(singles[:2]))
+            phase = "train" if yolo else "eval"
             with torch.no_grad():
                 det32 = ObjectDetector(cfg32, device=dev)
-                gpu_loc, gpu_conf = (a.cpu() for a in det32.forward(x.to(dev)))
+                gpu_out = [a.cpu() for a in det32.forward(x.to(dev), phase)]
                 del det32
-                cpu_loc, cpu_conf = ObjectDetector(cfg32, device="cpu").forward(x)
-            out["f32_loc_max_abs_err"] = (gpu_loc - cpu_loc).abs().max().item()
-            out["f32_conf_max_abs_err"] = (gpu_conf - cpu_conf).abs().max().item()
-            log(f"{what} float32 forward, card vs CPU: loc max|d| "
-                f"{out['f32_loc_max_abs_err']:.3e} (max|loc| {cpu_loc.abs().max().item():.3e}), "
-                f"conf max|d| {out['f32_conf_max_abs_err']:.3e}")
-            torch.testing.assert_close(gpu_loc, cpu_loc, rtol=F32_RTOL, atol=F32_ATOL)
-            torch.testing.assert_close(gpu_conf, cpu_conf, rtol=F32_RTOL, atol=F32_ATOL)
+                cpu_out = ObjectDetector(cfg32, device="cpu").forward(x, phase)
+            names = [f"raw{i}" for i in range(len(cpu_out))] if yolo else ("loc", "conf")
+            for n, g, c in zip(names, gpu_out, cpu_out):
+                out[f"f32_{n}_max_abs_err"] = (g - c).abs().max().item()
+            log(f"{what} float32 forward, card vs CPU: " + ", ".join(
+                f"{n} max|d| {out[f'f32_{n}_max_abs_err']:.3e} (max|{n}| "
+                f"{c.abs().max().item():.3e})" for n, c in zip(names, cpu_out)))
+            for g, c in zip(gpu_out, cpu_out):
+                torch.testing.assert_close(g, c, rtol=F32_RTOL, atol=F32_ATOL)
 
             # -- times
             out["train_step_ms"] = train_step_ms(solver)
-            out["train_img_s"] = 32 / out["train_step_ms"] * 1e3
+            out["train_img_s"] = batch / out["train_step_ms"] * 1e3
             lat, out["predict_batch32_img_s"] = serve_times(det, singles[0], batch32)
             out["predict_b1_p50_ms"] = float(np.percentile(lat, 50)) * 1e3
             out["predict_b1_p90_ms"] = float(np.percentile(lat, 90)) * 1e3
-            log(f"{what} bf16: train step batch 32 (20 steps after 3 warm-up, upload included) "
+            log(f"{what} bf16: train step batch {batch} (20 steps after 3 warm-up, upload "
+                "included) "
                 f"{out['train_step_ms']:.3f} ms, {out['train_img_s']:.1f} img/s; batch-1 predict "
                 f"p50 {out['predict_b1_p50_ms']:.3f} ms, p90 {out['predict_b1_p90_ms']:.3f} ms "
                 f"(50 requests); batch-32 predict_batch {out['predict_batch32_img_s']:.1f} img/s "
@@ -682,7 +737,7 @@ def drive_model(what, make_cfg, seed, dev, card, log, *, priors, batchnorms, f32
 def check_lite(seed, dev, card, log):
     """Phase 9: SSDLite-MobileNetV2-300 trained, resumed, deployed and served."""
     return drive_model("SSDLite-MobileNetV2-300", lite_config, seed, dev, card, log,
-                       priors=LITE_PRIORS, batchnorms=LITE_BATCHNORMS, f32_batch=LITE_F32_BATCH,
+                       num_boxes=LITE_PRIORS, batchnorms=LITE_BATCHNORMS, f32_batch=LITE_F32_BATCH,
                        update_tol=LITE_UPDATE_TOL, stats_rtol=LITE_STATS_RTOL)
 
 
@@ -713,9 +768,82 @@ def check_heads(seed, dev, card, log):
     out = {}
     for kind, (batchnorms, update_tol, stats_rtol) in HEADS.items():
         out[kind] = drive_model(MODELS[kind][0], head_config(kind), seed, dev, card, log,
-                                priors=SSD300_PRIORS, batchnorms=batchnorms,
+                                num_boxes=SSD300_PRIORS, batchnorms=batchnorms,
                                 f32_batch=HEAD_F32_BATCH, update_tol=update_tol,
                                 stats_rtol=stats_rtol)
+    return out
+
+
+def check_reorg(dev, log):
+    """YOLOv2's reorg on the card at its route's shape ``[B, 64, 26, 26]``:
+    the channels in the JAX package's (row offset, column offset, channel)
+    order, which ``F.pixel_unshuffle``'s (channel, row, column) is not."""
+    import torch.nn.functional as F
+
+    from ssds_tpu_torch.models.heads.yolo import space_to_depth
+
+    x = torch.randn(2, 64, 26, 26, generator=torch.Generator().manual_seed(0)).to(dev)
+    got = space_to_depth(x, 2).cpu()
+    nhwc = x.cpu().permute(0, 2, 3, 1).reshape(2, 13, 2, 13, 2, 64)
+    want = nhwc.permute(0, 1, 3, 2, 4, 5).reshape(2, 13, 13, 256).permute(0, 3, 1, 2)
+    if not torch.equal(got, want) or torch.equal(F.pixel_unshuffle(x, 2).cpu(), want):
+        raise AssertionError("the reorg's channel order on the card is not (row, column, channel)")
+    log("YOLOv2 reorg on the card at [2, 64, 26, 26]: channels in (row offset, column offset, "
+        "channel) order, equal to the NHWC reshape; pixel_unshuffle's order differs")
+
+
+def yolo_config(kind):
+    """Phase 12's config maker for ``kind`` (``yolo_v3`` or ``yolo_v2``):
+    :func:`head_config`'s cut with ``YOLO_EPOCHS`` epochs and the yml's
+    warm-up over as many steps as on VOC07+12."""
+    head = head_config(kind)
+
+    def make(root, exp):
+        cfg = head(root, exp)
+        epochs, batch = YOLO_EPOCHS[kind], int(cfg.TRAIN.BATCH_SIZE)
+        cfg.TRAIN.update(MAX_EPOCHS=epochs, CHECKPOINTS_EPOCHS=epochs)
+        cfg.TEST.TEST_SCOPE = [epochs, epochs]
+        cfg.TRAIN.LR_SCHEDULER.WARM_UP_EPOCHS *= -(-VOC0712_TRAINVAL // batch) / (
+            TRAIN_IMAGES // batch)
+        return cfg
+
+    return make
+
+
+def check_yolo(seed, dev, card, log):
+    """Phase 12: YOLOv3-DarkNet53-416 and YOLOv2-DarkNet19-416 trained,
+    resumed, deployed and served (``drive_model``); YOLOv2's reorg on the
+    card; its warm-up's seen-image count at every train step."""
+    from ssds_tpu_torch import solver as solver_lib
+    from ssds_tpu_torch.config import MODELS
+
+    check_reorg(dev, log)
+    seen = []
+    v2_loss = solver_lib.yolo_v2_loss
+
+    def counted(*args, seen_images=float("inf"), **kw):
+        seen.append(seen_images)
+        return v2_loss(*args, seen_images=seen_images, **kw)
+
+    out = {}
+    for kind, (num_boxes, batchnorms, update_tol, stats_rtol) in YOLO.items():
+        with mock.patch.object(solver_lib, "yolo_v2_loss", counted):
+            out[kind] = drive_model(MODELS[kind][0], yolo_config(kind), seed, dev, card, log,
+                                    num_boxes=num_boxes, batchnorms=batchnorms,
+                                    f32_batch=HEAD_F32_BATCH,
+                                    update_tol=update_tol, stats_rtol=stats_rtol,
+                                    loss_falls=True)
+    # YOLOv2's train steps come first: step * batch seen images each, the
+    # warm-up on below 12,800 (the evals pass inf: off)
+    v2_cfg = MODELS["yolo_v2"][1]()
+    steps = YOLO_EPOCHS["yolo_v2"] * (TRAIN_IMAGES // int(v2_cfg.TRAIN.BATCH_SIZE))
+    train_seen = [v for v in seen if v != float("inf")][:steps]
+    want = [i * int(v2_cfg.TRAIN.BATCH_SIZE) for i in range(steps)]
+    out["yolo_v2"]["seen_images"] = train_seen
+    log(f"YOLOv2's {len(train_seen)} train steps saw {train_seen[0]}, {train_seen[1]}, ..., "
+        f"{train_seen[-1]} images: step * batch, the warm-up on at every step (< 12800)")
+    if train_seen != want or max(train_seen) >= 12800:
+        raise AssertionError(f"YOLOv2 seen images {train_seen}, want {want}")
     return out
 
 
@@ -1134,6 +1262,10 @@ def main(argv=None):
     # -- 11. FSSD-VGG16-300 and RFBNet-VGG16-300: train, resume, deploy, serve ---
     heads = check_heads(args.seed, dev, card, log)
     report["heads"] = heads
+
+    # -- 12. YOLOv3-DarkNet53-416 and YOLOv2-DarkNet19-416 -----------------------
+    yolo = check_yolo(args.seed, dev, card, log)
+    report["yolo"] = yolo
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -1165,15 +1297,26 @@ def main(argv=None):
         "train_img_s", "predict_b1_p50_ms", "predict_b1_p90_ms", "predict_batch32_img_s",
         "f32_loc_max_abs_err", "f32_conf_max_abs_err", "f32_step", "train_model_s", "phase_s",
         "card") if k in h} for head, h in heads.items()}}))
+    log(json.dumps({"yolo": {name: {k: y[k] for k in (
+        "boxes", "batchnorms", "epoch_loss", "eval_map", "test_map", "nms_launches_eval",
+        "nms_launches_test", "nms_launches_serve", "bn_running_var_moved", "seen_images",
+        "train_step_ms", "train_img_s", "predict_b1_p50_ms", "predict_b1_p90_ms",
+        "predict_batch32_img_s", "f32_raw0_max_abs_err", "f32_raw1_max_abs_err",
+        "f32_raw2_max_abs_err", "f32_step",
+        "train_model_s", "phase_s", "card") if k in y} for name, y in yolo.items()}}))
     head_paths = {}
     for head, h in heads.items():
         head_paths[f"{head}_vgg16_serve"] = h["nms_launches_serve"]
         head_paths[f"{head}_vgg16_train"] = h["nms_launches_eval"] + h["nms_launches_test"]
+    for name, y in yolo.items():  # not `kind`: main's, printed on the last line
+        head_paths[f"{name}_serve"] = y["nms_launches_serve"]
+        head_paths[f"{name}_train"] = y["nms_launches_eval"] + y["nms_launches_test"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55",
         "launches": launches + lite["nms_launches_serve"] + coco["nms_launches_serve"]
-        + sum(h["nms_launches_serve"] for h in heads.values()),
+        + sum(h["nms_launches_serve"] for h in heads.values())
+        + sum(y["nms_launches_serve"] for y in yolo.values()),
         "launches_by_path": {"ssd300_vgg16_serve": launches,
                              "ssd_lite_mobilenetv2_serve": lite["nms_launches_serve"],
                              "ssd_lite_mobilenetv2_coco_serve": coco["nms_launches_serve"],

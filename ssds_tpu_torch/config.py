@@ -188,6 +188,40 @@ def rfb_vgg16_config() -> AttrDict:
                              "base,norm,extras,loc,conf", "rfb_vgg16_voc")
 
 
+def _yolo_voc_config(ssds: str, net: str, feature_layer, aspect_ratios, batch: int,
+                     name: str) -> AttrDict:
+    """The shared body of ``experiments/cfgs/yolo_v{2,3}_darknet_*_train_voc.yml``."""
+    cfg = default_config()
+    cfg.MODEL.update(SSDS=ssds, NETS=net, IMAGE_SIZE=[416, 416], FEATURE_LAYER=feature_layer,
+                     ASPECT_RATIOS=aspect_ratios)
+    cfg.TRAIN.update(BATCH_SIZE=batch, TRAINABLE_SCOPE="base,norm,extras,loc,conf",
+                     RESUME_SCOPE="base")
+    cfg.TRAIN.LR_SCHEDULER.update(SCHEDULER="sgdr", WARM_UP_EPOCHS=10)
+    cfg.TEST.update(BATCH_SIZE=32, TEST_SCOPE=[290, 300])
+    cfg.POST_PROCESS.IOU_THRESHOLD = 0.45
+    cfg.DATASET.DATASET_DIR = "./data/VOCdevkit"
+    cfg.EXP_DIR = f"./experiments/models/{name}"
+    cfg.LOG_DIR = f"./experiments/models/{name}/logs"
+    cfg.CHECKPOINTS_PREFIX = name
+    return cfg
+
+
+def yolo_v3_darknet53_config() -> AttrDict:
+    """``experiments/cfgs/yolo_v3_darknet_53_train_voc.yml`` (YOLOv3-DarkNet53-416
+    on VOC07+12, batch 16) over the defaults, written out for machines
+    without PyYAML. ``tests/test_torch_port_yolo_models.py`` holds it equal to
+    the file."""
+    return _yolo_voc_config("yolo_v3", "darknet_53", [[14, 23, 28], [256, 512, 1024]],
+                            [[2], [2], [2]], 16, "yolo_v3_darknet53_voc")
+
+
+def yolo_v2_darknet19_config() -> AttrDict:
+    """``experiments/cfgs/yolo_v2_darknet_19_train_voc.yml`` (YOLOv2-DarkNet19-416
+    on VOC07+12, batch 32), as :func:`yolo_v3_darknet53_config`."""
+    return _yolo_voc_config("yolo_v2", "darknet_19", [[16, 22], [512, 1024]], [[2]], 32,
+                            "yolo_v2_darknet19_voc")
+
+
 #: the full-width configurations the port's tools take by short name:
 #: (the name that reports print, the config)
 MODELS = {
@@ -195,6 +229,8 @@ MODELS = {
     "lite": ("SSDLite-MobileNetV2-300", ssd_lite_mobilenetv2_config),
     "fssd": ("FSSD-VGG16-300", fssd_vgg16_config),
     "rfb": ("RFBNet-VGG16-300", rfb_vgg16_config),
+    "yolo_v3": ("YOLOv3-DarkNet53-416", yolo_v3_darknet53_config),
+    "yolo_v2": ("YOLOv2-DarkNet19-416", yolo_v2_darknet19_config),
 }
 
 #: process-global singleton, for reference-API parity

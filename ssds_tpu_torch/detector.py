@@ -8,7 +8,9 @@ the original image -> score filter, with optional per-stage timing.
 Everything after the host-side resize runs on ``device``: mean
 subtraction, the conv forward (bf16 when ``MODEL.HALF_PRECISION``), then
 softmax, decode and detect in float32, with the batched NMS as the CUDA
-kernel on a GPU. The host uploads one ``[B, H, W, 3]`` uint8 batch and
+kernel on a GPU. A YOLO head has no priors: it decodes its own boxes
+(normalised to the model's input size) and they go through
+``detect_decoded``. The host uploads one ``[B, H, W, 3]`` uint8 batch and
 downloads one ``[B, C, max_det, 5]`` float32 block.
 
 An image that is not at the model's input size is resized on the host by
@@ -25,8 +27,8 @@ import torch
 
 from ssds_tpu_torch.checkpoint import load_state_dict_file
 from ssds_tpu_torch.data.image_ops import resize_linear
-from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
-from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect
+from ssds_tpu_torch.models.builder import create_model, create_priors, init_model, is_yolo
+from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect, detect_decoded
 
 
 def _resize(img: np.ndarray, hw) -> np.ndarray:
@@ -77,25 +79,34 @@ class ObjectDetector:
         for m in self.model.modules():
             if isinstance(m, torch.nn.Conv2d) and id(m) not in keep:
                 m.to(self.dtype)
-        self.priors = torch.from_numpy(create_priors(model_cfg, self.feature_maps)).to(self.device)
+        self.priors = None if is_yolo(model_cfg) else torch.from_numpy(
+            create_priors(model_cfg, self.feature_maps)).to(self.device)
         self.means = torch.tensor(cfg.DATASET.PIXEL_MEANS, dtype=torch.float32,
                                   device=self.device)
         self.post = PostProcessConfig.from_cfg(cfg.POST_PROCESS)
 
     @torch.no_grad()
-    def forward(self, img_u8: torch.Tensor):
+    def forward(self, img_u8: torch.Tensor, phase: str = "eval"):
         """``[B, H, W, 3]`` uint8 BGR at model size, on ``device`` ->
-        eval-phase ``(loc [B,K,4], conf [B,K,C])`` float32."""
+        eval-phase ``(loc [B,K,4], conf [B,K,C])`` float32; for a YOLO head
+        ``(boxes [B,K,4], scores [B,K,C])``. ``phase="train"`` gives the raw
+        outputs instead (the model stays in eval mode)."""
         x = (img_u8.float() - self.means).permute(0, 3, 1, 2).contiguous()
-        return self.model(x.to(self.dtype), phase="eval")
+        return self.model(x.to(self.dtype), phase=phase)
+
+    def postprocess(self, out) -> torch.Tensor:
+        """:meth:`forward`'s outputs -> dense ``[B, C, max_det, 5]`` rows:
+        ``detect`` against the priors, or ``detect_decoded`` for a YOLO head."""
+        if self.priors is None:
+            return detect_decoded(*out, self.post)
+        return detect(*out, self.priors, self.post)
 
     @torch.no_grad()
     def detect_rows(self, batch_u8: np.ndarray) -> torch.Tensor:
         """``[B, H, W, 3]`` uint8 at model size -> dense ``[B, C, max_det, 5]``
         detections on ``device`` (not synchronised)."""
         x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
-        loc, conf = self.forward(x)
-        return detect(loc, conf, self.priors, self.post)
+        return self.postprocess(self.forward(x))
 
     def predict_batch(self, imgs, threshold: float = 0.6):
         """Batched :meth:`predict`: images of any sizes are resized on the

@@ -1,10 +1,11 @@
 """Backbone zoo: builders returning flat layer-spec lists.
 
 Integer ``FEATURE_LAYER`` entries index into the list, so its layout is the
-API (documented in each module). Ported: ``vgg16`` and the eight MobileNets.
+API (documented in each module). Ported: ``vgg16``, the eight MobileNets,
+``darknet_19`` and ``darknet_53``.
 """
 
-from ssds_tpu_torch.models.backbones import mobilenet
+from ssds_tpu_torch.models.backbones import darknet, mobilenet
 from ssds_tpu_torch.models.backbones.vgg import vgg16
 
 networks_map = {
@@ -17,4 +18,6 @@ networks_map = {
     "mobilenet_v2_075": mobilenet.mobilenet_v2_075,
     "mobilenet_v2_050": mobilenet.mobilenet_v2_050,
     "mobilenet_v2_025": mobilenet.mobilenet_v2_025,
+    "darknet_19": darknet.darknet_19,
+    "darknet_53": darknet.darknet_53,
 }

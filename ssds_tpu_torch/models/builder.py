@@ -2,7 +2,9 @@
 
 Reference ``lib/modeling/model_builder.py``: ``create_model(cfg.MODEL)``
 builds the backbone layer list, hands it to the head builder, and measures
-each pyramid level's size with a dummy forward (``phase='feature'``). Here
+each pyramid level's size with a dummy forward (``phase='feature'``); a
+YOLO head also takes ``cfg.MODEL`` (for ``MODEL.ANCHORS``) and has no
+priors: it decodes its own boxes (:func:`is_yolo`). Here
 the model is built and measured on the ``meta`` device — shapes only, no
 memory and no arithmetic, the counterpart of the JAX package's
 ``jax.eval_shape`` — and :func:`init_model` materialises it.
@@ -45,10 +47,16 @@ def create_model(model_cfg) -> Tuple[nn.Module, List[Tuple[int, int]]]:
         raise KeyError(f"unknown or not yet ported head MODEL.SSDS={model_cfg.SSDS!r}")
     base = networks_map[model_cfg.NETS]()
     mbox = num_anchors_per_cell(model_cfg.ASPECT_RATIOS)
+    extra = (model_cfg,) if is_yolo(model_cfg) else ()
     with torch.device("meta"):
         model = ssds_map[model_cfg.SSDS](base, model_cfg.FEATURE_LAYER, mbox,
-                                         int(model_cfg.NUM_CLASSES))
+                                         int(model_cfg.NUM_CLASSES), *extra)
     return model, _forward_features_size(model, model_cfg.IMAGE_SIZE)
+
+
+def is_yolo(model_cfg) -> bool:
+    """A YOLO head (``MODEL.SSDS`` ``yolo_*``): no priors, its own decode."""
+    return str(model_cfg.SSDS).startswith("yolo")
 
 
 def create_priors(model_cfg, feature_maps) -> np.ndarray:

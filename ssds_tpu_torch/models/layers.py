@@ -52,6 +52,28 @@ class ReLU6(nn.ReLU6):
     JAX package's ``relu6`` VJP (``ssds_tpu/models/layers.py:54-68``)."""
 
 
+class LeakyReLU(nn.Module):
+    """``x`` where ``x > 0``, else ``slope * x`` (DarkNet's slope 0.1), and the
+    gradient ``g`` or ``slope * g`` likewise: the JAX package's
+    ``leaky_relu`` (``ssds_tpu/models/layers.py:73-91``), whose output-keyed
+    VJP picks the same branch. JAX multiplies by the Python float as a weakly
+    typed scalar, i.e. rounded to the input's dtype first (0.10009765625 in
+    bf16), so the slope here is rounded to the input's dtype too: the bf16
+    products are then the same."""
+
+    def __init__(self, negative_slope: float = 0.1):
+        super().__init__()
+        self.negative_slope = negative_slope
+        self._slopes: dict = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        slope = self._slopes.get(x.dtype)
+        if slope is None:
+            slope = self._slopes[x.dtype] = float(torch.tensor(self.negative_slope,
+                                                               dtype=x.dtype))
+        return F.leaky_relu(x, slope)
+
+
 class MaxPool(nn.MaxPool2d):
     """2D max pool; torch ``ceil_mode`` is the reference's pool3 ('C' entry)."""
 
@@ -162,12 +184,12 @@ def no_autocast(x: torch.Tensor):
     return contextlib.nullcontext()
 
 
-_ACTIVATIONS = {"relu": ReLU, "relu6": ReLU6}
+_ACTIVATIONS = {"relu": ReLU, "relu6": ReLU6, "leaky": LeakyReLU}
 
 
 class ConvBNReLU(nn.Sequential):
     """conv (no bias) -> :class:`BatchNorm` -> activation, as entries 0, 1, 2
-    (``act`` relu / relu6; ``none`` leaves entry 2 out). Reference
+    (``act`` relu / relu6 / leaky; ``none`` leaves entry 2 out). Reference
     ``conv_bn``; ``ssds_tpu/models/layers.py:543``."""
 
     def __init__(self, in_channels: int, features: int, kernel: Size2 = 3, stride: int = 1,

@@ -3,10 +3,12 @@
 For each batch size (default 1 and 32) it serves seeded random uint8 images
 through :class:`~ssds_tpu_torch.detector.ObjectDetector` on the default
 SSD300-VGG16 config (``--model lite``: SSDLite-MobileNetV2-300; ``fssd``:
-FSSD-VGG16-300; ``rfb``: RFBNet-VGG16-300, ``config.MODELS``) and reports:
+FSSD-VGG16-300; ``rfb``: RFBNet-VGG16-300; ``yolo_v3``: YOLOv3-DarkNet53-416;
+``yolo_v2``: YOLOv2-DarkNet19-416, ``config.MODELS``) and reports:
 
 - stage times (CUDA events, mean of ``--iters`` after warm-up): host-to-device
-  upload, the conv forward (mean subtraction to softmax), ``detect``, the
+  upload, the conv forward (mean subtraction to softmax, or to a YOLO head's
+  decoded boxes and scores), ``detect`` (``detect_decoded`` for YOLO), the
   device-to-host copy, and the whole ``predict_batch`` on the host clock;
 - the device's busy share over a ``torch.profiler`` window of whole
   ``predict_batch`` calls (summed kernel time over wall time; kernels may
@@ -46,20 +48,18 @@ def profile_batch(det, batch, iters, seed):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ssds_tpu_torch.ops.postprocess import detect
-
     imgs = np.random.default_rng(seed).integers(0, 256, (batch, *det.img_hw, 3), dtype=np.uint8)
     x = torch.from_numpy(imgs).to(det.device)
     with torch.no_grad():
         for _ in range(3):
             det.predict_batch(list(imgs), threshold=0.01)
-        loc, conf = det.forward(x)
-        rows = detect(loc, conf, det.priors, det.post)
+        out = det.forward(x)
+        rows = det.postprocess(out)
         torch.cuda.synchronize()
         stages = {
             "upload_ms": _events_ms(lambda: torch.from_numpy(imgs).to(det.device), iters),
             "forward_ms": _events_ms(lambda: det.forward(x), iters),
-            "detect_ms": _events_ms(lambda: detect(loc, conf, det.priors, det.post), iters),
+            "detect_ms": _events_ms(lambda: det.postprocess(out), iters),
             "download_ms": _events_ms(lambda: rows.cpu(), iters),
         }
     t0 = time.perf_counter()
@@ -90,7 +90,8 @@ def profile_batch(det, batch, iters, seed):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb"), default="vgg")
+    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2"),
+                        default="vgg")
     parser.add_argument("--batches", default="1,32")
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)

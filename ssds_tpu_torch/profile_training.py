@@ -3,20 +3,24 @@
 The training counterpart of :mod:`ssds_tpu_torch.profile_serving` (and of the
 JAX package's ``tools/step_profile.py``). On the default SSD300-VGG16 config
 (bf16 forward, SGD with momentum and weight decay; ``--model lite``,
-``fssd``, ``rfb``: SSDLite-MobileNetV2-300, FSSD-VGG16-300, RFBNet-VGG16-300
-with their yml's SGD, ``config.MODELS``) it runs the train step of
+``fssd``, ``rfb``, ``yolo_v3``, ``yolo_v2``: SSDLite-MobileNetV2-300,
+FSSD-VGG16-300, RFBNet-VGG16-300, YOLOv3-DarkNet53-416, YOLOv2-DarkNet19-416
+with their yml's SGD, ``config.MODELS``; a YOLO step's loss is
+``yolo_loss`` / ``yolo_v2_loss``, the latter with its warm-up on) it runs
+the train step of
 :func:`ssds_tpu_torch.solver.build_train_step` at ``--batch`` (default 32) over
 one batch drawn with :mod:`ssds_tpu_torch.tools.synth_voc` (1-3 GT boxes an
 image), and reports:
 
 - the step's split (CUDA events between the stages, mean of ``--iters``
   steps after warm-up): upload (pinned, non-blocking), forward (mean
-  subtraction and the bf16 model), match + MultiBox loss (float32),
-  backward, optimizer; and the step on the host clock, synchronised;
-- match (``ops.matching.match_batch``), the hard-negative ranks
-  (``ops.losses.hard_negative_ranks``) and the loss's forward, each alone at
-  the step's shapes (device time: launches queued behind a sleep kernel), the
-  candidates for a hand-written kernel;
+  subtraction and the bf16 model), the loss (float32: match + MultiBox, or
+  the YOLO loss), backward, optimizer; and the step on the host clock,
+  synchronised;
+- the loss's forward alone at the step's shapes, and for the SSD heads match
+  (``ops.matching.match_batch``) and the hard-negative ranks
+  (``ops.losses.hard_negative_ranks``) alone (device time: launches queued
+  behind a sleep kernel), the candidates for a hand-written kernel;
 - over a ``torch.profiler`` window of whole steps: the device's busy share
   (summed kernel time over wall time, an upper bound where kernels overlap),
   the top kernels by device time, and every kernel's time summed by kind
@@ -42,7 +46,7 @@ import time
 import numpy as np
 import torch
 
-STAGES = ("upload", "forward", "match_loss", "backward", "optimizer")
+STAGES = ("upload", "forward", "loss", "backward", "optimizer")
 # kernel kinds, by the first pattern found in a kernel's name (lower case)
 KINDS = (("conv_gemm", ("conv", "gemm", "xmma", "wgrad", "dgrad", "cutlass", "sm90_", "sm80_")),
          ("batchnorm", ("batch_norm", "batchnorm", "bn_")),
@@ -116,14 +120,15 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ssds_tpu_torch.ops.losses import hard_negative_ranks, multibox_loss
+    from ssds_tpu_torch.ops.losses import hard_negative_ranks
     from ssds_tpu_torch.ops.matching import match_batch
-    from ssds_tpu_torch.solver import apply_gradients, forward_raw
+    from ssds_tpu_torch.solver import apply_gradients, detection_loss, forward_raw
     from ssds_tpu_torch.tools import time_cuda_queued
 
     model, opt, priors = solver.model, solver.optimizer, solver.priors
     clip = float(solver.cfg.TRAIN.OPTIMIZER.get("CLIP_GRADIENT", 0.0) or 0.0)
     model.train()
+    seen = solver.step * int(batch["images"].shape[0])  # a YOLOv2 loss's warm-up: on at step 0
 
     def step(events=None):
         """The train step of ``build_train_step``, with a mark between stages."""
@@ -131,9 +136,9 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
         mark(0)
         dev = solver._upload(batch)
         mark(1)
-        loc, conf = forward_raw(model, dev["images"], solver.means, solver.compute_dtype)
+        out = forward_raw(model, dev["images"], solver.means, solver.compute_dtype)
         mark(2)
-        ll, lc = multibox_loss(loc, conf, dev["boxes"], dev["labels"], dev["valid"], priors)
+        ll, lc = detection_loss(model, priors, out, dev, seen_images=seen)
         mark(3)
         opt.zero_grad(set_to_none=True)
         (ll + lc).backward()
@@ -158,18 +163,18 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
 
     # the kernel candidates alone, at the step's shapes
     with torch.no_grad():
-        loc, conf = forward_raw(model, dev["images"], solver.means, solver.compute_dtype)
-        _, conf_t = match_batch(dev["boxes"], dev["labels"], dev["valid"], priors)
-        loss_c = torch.logsumexp(conf.float(), -1) - torch.gather(
-            conf.float(), 2, conf_t[..., None])[..., 0]
-        parts = {
-            "match_ms": time_cuda_queued(lambda: match_batch(dev["boxes"], dev["labels"],
-                                                             dev["valid"], priors), iters),
-            "hard_negative_ranks_ms": time_cuda_queued(lambda: hard_negative_ranks(loss_c), iters),
-            "multibox_loss_forward_ms": time_cuda_queued(
-                lambda: multibox_loss(loc, conf, dev["boxes"], dev["labels"], dev["valid"],
-                                      priors), iters),
-        }
+        out = forward_raw(model, dev["images"], solver.means, solver.compute_dtype)
+        parts = {"loss_forward_ms": time_cuda_queued(
+            lambda: detection_loss(model, priors, out, dev, seen_images=seen), iters)}
+        if priors is not None:
+            loc, conf = out
+            _, conf_t = match_batch(dev["boxes"], dev["labels"], dev["valid"], priors)
+            loss_c = torch.logsumexp(conf.float(), -1) - torch.gather(
+                conf.float(), 2, conf_t[..., None])[..., 0]
+            parts["match_ms"] = time_cuda_queued(
+                lambda: match_batch(dev["boxes"], dev["labels"], dev["valid"], priors), iters)
+            parts["hard_negative_ranks_ms"] = time_cuda_queued(
+                lambda: hard_negative_ranks(loss_c), iters)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
         t0 = time.perf_counter()
@@ -202,7 +207,8 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb"), default="vgg")
+    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2"),
+                        default="vgg")
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)

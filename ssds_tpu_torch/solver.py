@@ -9,14 +9,19 @@ loss and mAP; ``TRAINABLE_SCOPE`` freezes parameters; the writer records
 
 A train step here: uint8 images on the device -> minus ``PIXEL_MEANS`` in
 float32 -> the forward under ``torch.autocast`` in bf16 when
-``MODEL.HALF_PRECISION`` (float32 master weights) -> match and MultiBox loss
-in float32 -> backward -> the optimizer, whose updates follow the JAX
-package's optax chains (:func:`configure_optimizer`) with the LR set each
-step from the step-indexed schedule. A step returns device scalars and never
-waits for the device.
+``MODEL.HALF_PRECISION`` (float32 master weights) -> the loss in float32
+(:func:`detection_loss`: match and MultiBox for the SSD-family heads, which
+have priors; ``yolo_loss`` for YOLOv3 and ``yolo_v2_loss`` for YOLOv2, whose
+warm-up counts ``step * batch`` seen images, as the JAX step does) ->
+backward -> the optimizer, whose updates follow the JAX package's optax
+chains (:func:`configure_optimizer`) with the LR set each step from the
+step-indexed schedule. A step returns device scalars and never waits for the
+device. An eval batch takes one forward for its loss and its detections
+(:func:`detections`: ``detect`` on the priors, or a YOLO head's decoded boxes
+through ``detect_decoded``).
 
-Differences from the JAX solver: one process (no DDP yet); the SSD, FSSD
-and RFB heads (the YOLO heads and device augmentation are not ported); no
+Differences from the JAX solver: one process (no DDP yet); every head is
+ported (SSD, SSDLite, FSSD, RFB, YOLOv2/v3), device augmentation is not; no
 ``visualize_epoch``. After a resume the port continues the LR schedule from
 the restored step, as ``ssds_tpu/solver.py:366-367`` intends; the JAX
 optimizer restarts its schedule count at 0 (ROADMAP.md §3).
@@ -24,6 +29,7 @@ optimizer restarts its schedule count at 0 (ROADMAP.md §3).
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Callable, Dict, Iterable, List, Tuple
@@ -33,10 +39,11 @@ import torch
 
 from ssds_tpu_torch import checkpoint as ckpt_lib
 from ssds_tpu_torch.data.factory import load_data
-from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
+from ssds_tpu_torch.models.builder import create_model, create_priors, init_model, is_yolo
 from ssds_tpu_torch.models.heads.common import finalize
 from ssds_tpu_torch.ops.losses import multibox_loss
-from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect
+from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect, detect_decoded
+from ssds_tpu_torch.ops.yolo import yolo_loss, yolo_v2_loss
 
 # --------------------------------------------------------------------------
 # LR schedule and optimizer (reference configure_lr_scheduler /
@@ -262,7 +269,8 @@ def apply_gradients(optimizer: torch.optim.Optimizer, lr: float, clip: float = 0
 
 def forward_raw(model: torch.nn.Module, images_u8: torch.Tensor, means: torch.Tensor,
                 dtype: torch.dtype):
-    """``[B, H, W, 3]`` uint8 BGR -> raw ``(loc, conf)``: the mean subtracted
+    """``[B, H, W, 3]`` uint8 BGR -> the ``'train'`` phase's raw outputs
+    (``(loc, conf)``, or a YOLO head's per-scale list): the mean subtracted
     in float32, the model under autocast in ``dtype`` (bf16), or in float32
     (float64 for a model made ``.double()``)."""
     x = (images_u8.float() - means).permute(0, 3, 1, 2).contiguous()
@@ -272,19 +280,51 @@ def forward_raw(model: torch.nn.Module, images_u8: torch.Tensor, means: torch.Te
         return model(x, phase="train")
 
 
-def build_train_step(model, priors: torch.Tensor, optimizer, lr_schedule, dtype,
-                     pixel_means, clip: float = 0.0):
+def detection_loss(model, priors, out, batch, seen_images: float = math.inf):
+    """``(loss_l, loss_c)`` of the raw outputs ``out`` on a device ``batch``:
+    the MultiBox loss against ``priors``, or, for a YOLO model (``priors``
+    None), ``yolo_loss`` (v3) or ``yolo_v2_loss`` (v2, whose prior-regression
+    warm-up runs while ``seen_images`` < 12800; the default, inf, leaves it
+    off, as the JAX package's eval loss does). A YOLO loss decodes against
+    the images' own size, which is the model's input size."""
+    boxes, labels, valid = batch["boxes"], batch["labels"], batch["valid"]
+    if priors is not None:
+        loc, conf = out
+        return multibox_loss(loc, conf, boxes, labels, valid, priors)
+    img_hw = tuple(batch["images"].shape[1:3])
+    anchors = model.anchor_tensors(boxes.device)
+    if model.version == 2:
+        return yolo_v2_loss(out, anchors, boxes, labels, valid, img_hw, seen_images=seen_images)
+    return yolo_loss(out, anchors, boxes, labels, valid, img_hw)
+
+
+def detections(model, priors, out, img_hw, post: PostProcessConfig) -> torch.Tensor:
+    """Dense rows ``[B, C, max_det, 5]`` of the raw outputs ``out``:
+    ``detect`` of the eval packaging (float32 softmax) against ``priors``, or
+    for a YOLO model (``priors`` None) ``detect_decoded`` of its boxes
+    decoded against ``img_hw``, the input images' size (the JAX model
+    decodes against its input's shape)."""
+    if priors is None:
+        return detect_decoded(*model.decode(out, img_hw), post)
+    return detect(*finalize("eval", *out), priors, post)
+
+
+def build_train_step(model, priors, optimizer, lr_schedule, dtype, pixel_means,
+                     clip: float = 0.0):
     """The per-iteration body: ``train_step(batch, step) -> {"loss", "loss_l",
     "loss_c"}`` (device scalars), the model in train mode. ``batch`` holds
     ``images`` (uint8 NHWC), ``boxes``, ``labels`` and ``valid`` on the
-    model's device; ``step`` indexes ``lr_schedule``."""
-    means = torch.tensor(tuple(pixel_means), dtype=torch.float32, device=priors.device)
+    model's device; ``step`` indexes ``lr_schedule`` and counts the images a
+    YOLOv2 loss has seen (``step * batch``). ``priors`` is None for a YOLO
+    model (:func:`detection_loss`)."""
+    device = next(model.parameters()).device
+    means = torch.tensor(tuple(pixel_means), dtype=torch.float32, device=device)
 
     def train_step(batch, step: int) -> Dict[str, torch.Tensor]:
         model.train()  # BatchNorm on batch statistics, as the JAX step's train=True
-        loc, conf = forward_raw(model, batch["images"], means, dtype)
-        loss_l, loss_c = multibox_loss(loc, conf, batch["boxes"], batch["labels"],
-                                       batch["valid"], priors)
+        out = forward_raw(model, batch["images"], means, dtype)
+        loss_l, loss_c = detection_loss(model, priors, out, batch,
+                                        seen_images=step * batch["images"].shape[0])
         loss = loss_l + loss_c
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -321,7 +361,9 @@ class Solver:
         model, self.feature_maps = create_model(cfg.MODEL)
         self.model = init_model(model, seed=seed, device=self.device)
         self.img_hw = (int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1]))
-        self.priors = torch.from_numpy(create_priors(cfg.MODEL, self.feature_maps)).to(self.device)
+        self.is_yolo = is_yolo(cfg.MODEL)
+        self.priors = None if self.is_yolo else torch.from_numpy(
+            create_priors(cfg.MODEL, self.feature_maps)).to(self.device)
         self.compute_dtype = torch.bfloat16 if bool(cfg.MODEL.HALF_PRECISION) else torch.float32
         self.means = torch.tensor(tuple(cfg.DATASET.PIXEL_MEANS), dtype=torch.float32,
                                   device=self.device)
@@ -409,10 +451,10 @@ class Solver:
         @torch.no_grad()
         def eval_step(batch):
             self.model.eval()  # BatchNorm on running statistics, as JAX's train=False
-            loc, conf = forward_raw(self.model, batch["images"], self.means, self.compute_dtype)
-            ll, lc = multibox_loss(loc, conf, batch["boxes"], batch["labels"], batch["valid"],
-                                   self.priors)
-            return ll, lc, detect(*finalize("eval", loc, conf), self.priors, self.post_cfg)
+            out = forward_raw(self.model, batch["images"], self.means, self.compute_dtype)
+            ll, lc = detection_loss(self.model, self.priors, out, batch)
+            return ll, lc, detections(self.model, self.priors, out,
+                                      tuple(batch["images"].shape[1:3]), self.post_cfg)
 
         return eval_step
 
@@ -422,8 +464,9 @@ class Solver:
         @torch.no_grad()
         def eval_forward(images):
             self.model.eval()
-            loc, conf = forward_raw(self.model, images, self.means, self.compute_dtype)
-            return detect(*finalize("eval", loc, conf), self.priors, self.post_cfg)
+            out = forward_raw(self.model, images, self.means, self.compute_dtype)
+            return detections(self.model, self.priors, out, tuple(images.shape[1:3]),
+                              self.post_cfg)
 
         return eval_forward
 

@@ -1,7 +1,7 @@
 """One float32 train step on the card against the same step on the CPU.
 
-    python -m ssds_tpu_torch.tools.step_parity [--model vgg|lite|fssd|rfb] [--batch N]
-        [--seed 0] [--out PATH]
+    python -m ssds_tpu_torch.tools.step_parity [--model vgg|lite|fssd|rfb|yolo_v3|yolo_v2]
+        [--batch N] [--seed 0] [--out PATH]
 
 The ``Solver``'s own train step (SGD, the config's LR, momentum and decay),
 float32 with TF32 off, from one seed's weights, on one batch of the
@@ -14,8 +14,9 @@ running statistic after the step (BatchNorm models): a mean's error in
 units of its channel's standard deviation, a variance's relative to itself.
 
 Models (``config.MODELS``): ``vgg`` is SSD300-VGG16 (the default config),
-``lite`` SSDLite-MobileNetV2-300, ``fssd`` FSSD-VGG16-300 and ``rfb``
-RFBNet-VGG16-300, all at full width. Needs a CUDA device. ``tests/torch_port_step_causes.py`` runs
+``lite`` SSDLite-MobileNetV2-300, ``fssd`` FSSD-VGG16-300, ``rfb``
+RFBNet-VGG16-300, ``yolo_v3`` YOLOv3-DarkNet53-416 and ``yolo_v2``
+YOLOv2-DarkNet19-416, all at full width. Needs a CUDA device. ``tests/torch_port_step_causes.py`` runs
 the same comparison under the changes that name the cause of a gap.
 """
 
@@ -149,7 +150,8 @@ def main(argv=None):
     from ssds_tpu_torch.tools import card_line, need_cuda
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb"), default="vgg")
+    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2"),
+                        default="vgg")
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default="")

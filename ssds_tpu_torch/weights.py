@@ -28,6 +28,12 @@ RFB, ``rfb_lite`` (``b`` = the extras entry of block ``j``, see below):
 ``extra_layers_{j}/SepConvBNReLU_{s}/ConvBNReLU_{g}`` ``extras.{b}.<RFB_LITE_SEP[s]>.{3g,3g+1}.*``
 ``extra_layers_{j}/layers_{l}/Conv_0/...``           ``extras.{b+l}.*``
 ``norm/{Conv_k,BatchNorm_k}/...`` (``BasicRFB_a``)   ``norm.<RFB_A_INNER[k]>.{conv,bn}.*``
+DarkNet, YOLO (``net`` ``darknet_*``, ``ssds`` ``yolo_*``):
+``base_layers_{i}/{Conv_0,BatchNorm_0}/...``         ``base.{i}.{0,1}.*``
+``base_layers_{i}/ConvBNReLU_{g}/...`` (residual)    ``base.{i}.ConvBNReLU_{g}.{0,1}.*``
+``extras_{n}/{Conv_0,BatchNorm_0}/...``              ``extras_{n}.{0,1}.*``
+``extras_{n}/ConvBNReLU_{g}/...`` (``ConvSet``)      ``extras_{n}.ConvBNReLU_{g}.{0,1}.*``
+``conf{k}/Conv_0/...``                               ``conf{k}.*``
 ==================================================== ==============================
 
 An RFB ``extras`` list holds one entry for each ``BasicRFB`` and two for each
@@ -76,6 +82,8 @@ _PYRAMID = re.compile(r"pyramid_layers_(\d+)/(?:ConvBNReLU_(\d+)/)?(Conv_0|Batch
 _RFB = re.compile(r"extra_layers_(\d+)/(?:ConvBNReLU_(\d+)|SepConvBNReLU_(\d+)/ConvBNReLU_(\d+))/"
                   r"(Conv_0|BatchNorm_0)$")
 _RFB_A = re.compile(r"norm/(Conv|BatchNorm)_(\d+)$")
+_YOLO_EXTRA = re.compile(r"(extras_[a-z0-9]+)/(?:(ConvBNReLU_\d+)/)?(Conv_0|BatchNorm_0)$")
+_YOLO_CONF = re.compile(r"(conf\d+)/Conv_0$")
 
 # the reference BasicRFB's BasicConv of each flax ConvBNReLU_{k}, in call order
 RFB_INNER = ("branch0.0", "branch0.1", "branch1.0", "branch1.1", "branch1.2", "branch2.0",
@@ -127,6 +135,8 @@ def _module_name(path: str, net: str, ssds: str, feature_layer) -> str:
     m = _BASE.fullmatch(path)
     if m:
         i, group, entry = m[1], m[2], _ENTRY[m[3]]
+        if net.startswith("darknet"):
+            return f"base.{i}.{entry}" if group is None else f"base.{i}.ConvBNReLU_{group}.{entry}"
         if group is not None:
             inner = "conv." if net.startswith("mobilenet_v2") else ""
             return f"base.{i}.{inner}{3 * int(group) + entry}"
@@ -141,6 +151,12 @@ def _module_name(path: str, net: str, ssds: str, feature_layer) -> str:
     m = _PYRAMID.fullmatch(path)
     if m:
         return f"pyramids.{m[1]}.{3 * int(m[2] or 0) + _ENTRY[m[3]]}"
+    m = _YOLO_EXTRA.fullmatch(path)
+    if m:
+        return ".".join(p for p in (m[1], m[2], str(_ENTRY[m[3]])) if p)
+    m = _YOLO_CONF.fullmatch(path)
+    if m:
+        return m[1]
     m = _HEAD.fullmatch(path)
     if m:
         name = f"{m[1]}.{m[3]}"

@@ -625,3 +625,122 @@ def test_detector_predicts_a_640x480_image_on_the_card(cuda):
     np.testing.assert_array_equal(scores, rows[cls, slot, 0])
     np.testing.assert_array_equal(boxes, rows[cls, slot, 1:5] * np.float32([640, 480, 640, 480]))
     assert len(scores) > 0
+
+
+def _yolo_case(seed, grids, anchors, b=4, g=6, classes=20):
+    """Raw outputs, anchors and padded GT for the YOLO ops, with two GTs on
+    one cell-anchor and padding after a valid GT on cell 0."""
+    rng = np.random.default_rng(seed)
+    raw = [torch.from_numpy(rng.normal(0, 1, (b, h, w, len(a), 5 + classes)).astype(np.float32))
+           for (h, w), a in zip(grids, anchors)]
+    xy = rng.uniform(0.05, 0.95, (b, g, 2))
+    wh = rng.uniform(0.02, 0.6, (b, g, 2))
+    boxes = np.concatenate([xy - wh / 2, xy + wh / 2], -1).astype(np.float32)
+    valid = np.arange(g)[None, :] < rng.integers(2, g, (b, 1))
+    boxes[0, 1] = boxes[0, 0] + 0.001  # the same cell and anchor as GT 0
+    valid[0, :2] = True
+    i = min(1, b - 1)  # cell 0, then padding on cell 0
+    boxes[i] = 0.0
+    boxes[i, 0] = [0.0, 0.0, 0.03, 0.03]
+    valid[i] = False
+    valid[i, 0] = True
+    boxes[~valid] = 0.0
+    labels = torch.from_numpy(rng.integers(0, classes, (b, g)).astype(np.int32))
+    return (raw, [torch.tensor(a, dtype=torch.float32) for a in anchors], torch.from_numpy(boxes),
+            labels, torch.from_numpy(valid))
+
+
+YOLO_V3_GRIDS = [(52, 52), (26, 26), (13, 13)]
+YOLO_V3_ANCHORS = [[[10, 13], [16, 30], [33, 23]], [[30, 61], [62, 45], [59, 119]],
+                   [[116, 90], [156, 198], [373, 326]]]
+YOLO_V2_ANCHORS = [[[27, 37], [87, 102], [173, 236], [339, 216], [382, 383]]]
+
+
+@pytest.mark.parametrize("version", [3, 2])
+def test_yolo_losses_and_decode_on_the_card_equal_the_cpu(cuda, version):
+    """``decode_scale``, ``yolo_loss`` / ``yolo_v2_loss`` and their gradients
+    at YOLO-416's grids, card against CPU: the decode within rtol / atol 1e-5
+    (exp and sigmoid in other libraries), the losses within rtol 1e-5 and the
+    gradients within 1e-5 of their largest element (float32 sums over 10,647
+    cells in other orders)."""
+    from ssds_tpu_torch.ops import yolo
+
+    grids, anchors = ((YOLO_V3_GRIDS, YOLO_V3_ANCHORS) if version == 3
+                      else ([(13, 13)], YOLO_V2_ANCHORS))
+    raw, anc, boxes, labels, valid = _yolo_case(version, grids, anchors)
+    fn = yolo.yolo_loss if version == 3 else yolo.yolo_v2_loss
+    kw = {} if version == 3 else {"seen_images": 0.0}
+
+    def run(dev):
+        r = [t.to(dev).requires_grad_() for t in raw]
+        a = [t.to(dev) for t in anc]
+        ll, lc = fn(r, a, boxes.to(dev), labels.to(dev), valid.to(dev), (416, 416), **kw)
+        (ll + lc).backward()
+        dec = yolo.decode_scale(r[0].detach(), a[0], (416, 416))
+        return [ll.item(), lc.item()], [t.grad.cpu() for t in r], [d.cpu() for d in dec]
+
+    (gl, gg, gd), (cl, cg, cd) = run(cuda), run("cpu")
+    np.testing.assert_allclose(gl, cl, rtol=1e-5)
+    scale = max(float(g.abs().max()) for g in cg)
+    assert max(float((a - b).abs().max()) for a, b in zip(gg, cg)) <= 1e-5 * scale
+    for a, b in zip(gd, cd):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_yolo_positive_mask_is_the_same_over_five_runs(cuda):
+    """The OR-scatter on the card with many GTs on few cells, the on/off
+    flags mixed: the same mask in five runs, equal to the CPU's."""
+    from ssds_tpu_torch.ops.yolo import positive_mask
+
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(rng.integers(0, 4, (16, 64)))
+    on = torch.from_numpy(rng.random((16, 64)) < 0.3)
+    want = positive_mask(8, idx, on)
+    for _ in range(5):
+        assert torch.equal(positive_mask(8, idx.to(cuda), on.to(cuda)).cpu(), want)
+    assert want.any() and not want.all()
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_yolo_detect_decoded_rows_with_the_kernel_equal_plain(cuda, batch):
+    """A YOLOv3-416-shaped decode (10,647 boxes, 21 score columns, column 0
+    ``1 - obj``) through ``detect_decoded`` with the kernel and the plain NMS."""
+    from ssds_tpu_torch.ops import yolo
+
+    raw, anc, _, _, _ = _yolo_case(batch, YOLO_V3_GRIDS, YOLO_V3_ANCHORS, b=batch)
+    boxes, scores = [], []
+    for r, a in zip(raw, anc):
+        b, obj, cls = yolo.decode_scale(r.to(cuda), a.to(cuda), (416, 416))
+        boxes.append(b)
+        scores.append(torch.cat([(1 - obj)[..., None], obj[..., None] * torch.sigmoid(cls)], -1))
+    boxes, scores = torch.cat(boxes, 1), torch.cat(scores, 1)
+    assert boxes.shape == (batch, 10647, 4) and scores.shape == (batch, 10647, 21)
+    cfg = postprocess.PostProcessConfig(iou_threshold=0.45, pre_nms_top_n=1024)
+    before = cuda_nms.nms_mask.launches
+    rows = postprocess.detect_decoded(boxes, scores, cfg)
+    assert cuda_nms.nms_mask.launches == before + 1
+    with mock.patch.object(postprocess, "nms_mask", nms_mask_torch):
+        plain = postprocess.detect_decoded(boxes, scores, cfg)
+    assert rows.shape == (batch, 21, 100, 5) and torch.equal(rows, plain)
+    assert (rows[:, 1:, :, 0] > 0).any()
+
+
+def test_yolo_detector_serves_on_the_card(cuda):
+    """A small YOLOv3 (MobileNetV1-0.25, 64x64, float32) on the card: the
+    kernel runs, and the decoded boxes and scores agree with the CPU's (atol
+    1e-4, TF32 off)."""
+    from ssds_tpu_torch.detector import ObjectDetector
+
+    cfg = default_config()
+    cfg.MODEL.update(SSDS="yolo_v3", NETS="mobilenet_v1_025", IMAGE_SIZE=[64, 64],
+                     FEATURE_LAYER=[[5, 11, 13], [64, 128, 256]], HALF_PRECISION=False,
+                     ANCHORS=[[[16, 16]], [[24, 24]], [[32, 32]]])
+    gpu, cpu = ObjectDetector(cfg, device=cuda), ObjectDetector(cfg, device="cpu")
+    imgs = np.random.default_rng(0).integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    before = cuda_nms.nms_mask.launches
+    out = gpu.predict_batch(list(imgs), threshold=0.01)
+    assert cuda_nms.nms_mask.launches == before + 1
+    assert len(out) == 4 and all(np.isfinite(b).all() for b, _, _ in out)
+    x = torch.from_numpy(imgs)
+    for g, c in zip(gpu.forward(x.to(cuda)), cpu.forward(x)):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)

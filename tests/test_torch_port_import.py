@@ -50,7 +50,8 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.data.image_ops", "ssds_tpu_torch.data.native",
                    "ssds_tpu_torch.tools.synth_coco", "ssds_tpu_torch.models.heads.fssd",
                    "ssds_tpu_torch.models.heads.fssd_lite", "ssds_tpu_torch.models.heads.rfb",
-                   "ssds_tpu_torch.models.heads.rfb_lite"):
+                   "ssds_tpu_torch.models.heads.rfb_lite", "ssds_tpu_torch.ops.yolo",
+                   "ssds_tpu_torch.models.heads.yolo", "ssds_tpu_torch.models.backbones.darknet"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,
@@ -155,3 +156,21 @@ def test_anchors_bit_equal_to_jax(which):
         janchors.num_anchors_per_cell(cfg.MODEL.ASPECT_RATIOS)
     if which == "ssd300":
         assert got.shape == (8732, 4)
+
+
+def test_chip_smoke_main_binds_kind_once():
+    """``chip_smoke.main`` prints ``kind`` (the card's name) in its last line:
+    no loop, comprehension or assignment in ``main`` may bind that name again
+    (a phase's loop over model kinds did, twice)."""
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    main = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main")
+    bound = []
+    for node in ast.walk(main):
+        targets = ([node.target] if isinstance(node, (ast.For, ast.comprehension))
+                   else node.targets if isinstance(node, ast.Assign) else [])
+        bound += [node.lineno if hasattr(node, "lineno") else None for t in targets
+                  for n in ast.walk(t) if isinstance(n, ast.Name) and n.id == "kind"]
+    assert len(bound) == 1, f"main binds `kind` at lines {bound}"

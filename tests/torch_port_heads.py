@@ -22,7 +22,7 @@ from ssds_tpu.solver import build_train_step as jax_build_train_step
 from ssds_tpu.solver import configure_lr_scheduler as jax_sched
 from ssds_tpu.solver import configure_optimizer as jax_opt
 from ssds_tpu_torch.config import default_config
-from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
+from ssds_tpu_torch.models.builder import create_model, create_priors, init_model, is_yolo
 from ssds_tpu_torch.solver import build_train_step, configure_lr_scheduler, configure_optimizer
 from ssds_tpu_torch.weights import port_name, state_dict_from_jax
 from test_torch_port_bn_layers import _nchw, _nhwc, _random_variables
@@ -33,15 +33,16 @@ DTYPES = {"float64": (jnp.float64, torch.float64), "float32": (jnp.float32, torc
           "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def configs(ssds, net, image, feature_layer, aspect_ratios, num_classes=4):
+def configs(ssds, net, image, feature_layer, aspect_ratios, num_classes=4, **model):
     """The JAX and port configs of a small head: the defaults with these
-    ``MODEL`` keys (and ``SIZES`` one longer than the maps)."""
+    ``MODEL`` keys (and ``SIZES`` one longer than the maps), and any other
+    ``MODEL`` keys given (a YOLO head's ``ANCHORS``)."""
     out = []
     for make in (jax_default_config, default_config):
         cfg = make()
         cfg.MODEL.update(SSDS=ssds, NETS=net, IMAGE_SIZE=[image, image], NUM_CLASSES=num_classes,
                          FEATURE_LAYER=feature_layer, ASPECT_RATIOS=aspect_ratios,
-                         SIZES=[0.2, 0.4, 0.6, 0.8, 0.95][:len(aspect_ratios) + 1])
+                         SIZES=[0.2, 0.4, 0.6, 0.8, 0.95][:len(aspect_ratios) + 1], **model)
         cfg.POST_PROCESS.NUM_CLASSES = num_classes
         out.append(cfg)
     if hasattr(out[0].MODEL, "S2D_STEM"):
@@ -61,13 +62,17 @@ def bridge(variables, model_cfg):
                                feature_layer=model_cfg.FEATURE_LAYER)
 
 
-def head_pair(ssds, net, image, feature_layer, aspect_ratios, seed=0):
+def head_pair(ssds, net, image, feature_layer, aspect_ratios, seed=0, tame=None, **model):
     """``(jmodel, variables, tmodel, jcfg, tcfg)``: the JAX model with random
     variables and the port's model holding them, the feature-map sizes of
-    the two held equal."""
-    jcfg, tcfg = configs(ssds, net, image, feature_layer, aspect_ratios)
+    the two held equal. ``tame(variables)``, when given, rescales the random
+    variables in place (a deep residual stack would otherwise blow up);
+    ``model`` holds further ``MODEL`` keys."""
+    jcfg, tcfg = configs(ssds, net, image, feature_layer, aspect_ratios, **model)
     jmodel, jfmaps = jbuilder.create_model(jcfg.MODEL)
     variables = _random_variables(jax_shapes(jmodel, image), np.random.default_rng(seed))
+    if tame is not None:
+        tame(variables)
     tmodel, fmaps = create_model(tcfg.MODEL)
     assert fmaps == [tuple(f) for f in jfmaps], (fmaps, jfmaps)
     tmodel = init_model(tmodel, seed)
@@ -169,14 +174,16 @@ def check_block_train(jblock, variables, tblock, x, port_names, rng, tol, stats_
     return worst
 
 
-def served_forward_against_jax(jmodel, variables, det, x, half, f32_tol):
+def served_forward_against_jax(jmodel, variables, det, x, half, f32_tol,
+                               names=("loc", "conf")):
     """The detector's eval forward on uint8 ``x`` against the JAX model's (the
     mean subtracted in float32, then the bf16 cast). Float32: ``loc`` and the
     softmax within ``f32_tol`` (atol each). bf16: each lies no further from
     JAX's float32 forward than twice JAX's own bf16 forward does (every
     layer rounds to bf16 in both packages, and where the two round a
     convolution's sum differs, so the two bf16 forwards are not closer to
-    each other than to the float32 one). Returns the errors for printing."""
+    each other than to the float32 one). Returns the errors for printing,
+    under ``names`` (a YOLO head's outputs are decoded boxes and scores)."""
     means = np.asarray(det.cfg.DATASET.PIXEL_MEANS, np.float32)
     forward = jax.jit(lambda v, img, dt: jmodel.apply(
         v, (img.astype(jnp.float32) - means).astype(dt), phase="eval", train=False),
@@ -187,10 +194,10 @@ def served_forward_against_jax(jmodel, variables, det, x, half, f32_tol):
     if not half:
         for g, w, tol in zip(got, want, f32_tol):
             np.testing.assert_allclose(g, w, rtol=0, atol=tol)
-        return {k: float(np.abs(g - w).max()) for k, g, w in zip(("loc", "conf"), got, want)}
+        return {k: float(np.abs(g - w).max()) for k, g, w in zip(names, got, want)}
     ref = [np.asarray(a) for a in forward(variables, x, jnp.float32)]
     out = {}
-    for k, g, w, r in zip(("loc", "conf"), got, want, ref):
+    for k, g, w, r in zip(names, got, want, ref):
         port_err, jax_err = float(np.abs(g - r).max()), float(np.abs(w - r).max())
         out[k] = (port_err, jax_err)
         assert port_err <= 2 * jax_err, (k, port_err, jax_err)
@@ -215,10 +222,10 @@ def batch(image, seed=0, b=4, g=4):
             "valid": valid}
 
 
-def _train_cfg(cfg):
+def _train_cfg(cfg, lr=1e-3):
     tc = cfg.TRAIN
     tc.TRAINABLE_SCOPE = ""
-    tc.OPTIMIZER.update(LEARNING_RATE=1e-3, MOMENTUM=0.9, WEIGHT_DECAY=5e-4)
+    tc.OPTIMIZER.update(LEARNING_RATE=lr, MOMENTUM=0.9, WEIGHT_DECAY=5e-4)
     tc.LR_SCHEDULER.update(SCHEDULER="step", STEPS=[1], GAMMA=0.5, WARM_UP_EPOCHS=0)
     return tc
 
@@ -231,20 +238,34 @@ def _state(model_cfg, params, batch_stats):
     return {k: (v.double() if v.is_floating_point() else v) for k, v in sd.items()}
 
 
-def jax_steps(pair, dtype_name, frozen=False, data=None, steps=2):
+class _FrozenHead(_RunningStatistics):
+    """:class:`_RunningStatistics` that also shows the model's attributes (a
+    YOLO step reads its ``anchors`` and ``version``)."""
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+
+def _priors(model_cfg):
+    """The config's priors, or None for a YOLO head (which decodes its own boxes)."""
+    if is_yolo(model_cfg):
+        return None
+    return create_priors(model_cfg, create_model(model_cfg)[1])
+
+
+def jax_steps(pair, dtype_name, frozen=False, data=None, steps=2, lr=1e-3):
     """The JAX package's train steps on ``pair`` (:func:`head_pair`'s result):
     ``[(loss_l, loss_c, state dict)]``, the start first (losses ``None``),
     state dicts in float64. ``frozen`` runs every BatchNorm on its running
-    statistics."""
+    statistics; SGD (momentum 0.9, decay 5e-4) at ``lr``."""
     jdtype, _ = DTYPES[dtype_name]
     jmodel, variables, _, jcfg, tcfg = pair
     image = int(tcfg.MODEL.IMAGE_SIZE[0])
     if frozen:
-        jmodel = _RunningStatistics(jmodel)
-    fmaps = create_model(tcfg.MODEL)[1]
-    priors = create_priors(tcfg.MODEL, fmaps)
+        jmodel = _FrozenHead(jmodel)
+    priors = _priors(tcfg.MODEL)
     data = {k: jnp.asarray(v) for k, v in (data or batch(image)).items()}
-    tc = _train_cfg(jcfg)
+    tc = _train_cfg(jcfg, lr)
     out = [(None, None, _state(tcfg.MODEL, variables["params"], variables["batch_stats"]))]
     with jax.enable_x64(dtype_name == "float64"):
         params, stats = variables["params"], variables["batch_stats"]
@@ -254,8 +275,8 @@ def jax_steps(pair, dtype_name, frozen=False, data=None, steps=2):
         tx = jax_opt(tc, jax_sched(tc, 1))(params)
         state = TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
                            opt_state=tx.init(params), tx=tx)
-        step = jax_build_train_step(jmodel, jnp.asarray(priors), False, (image, image), jdtype,
-                                    pixel_means=MEANS)
+        step = jax_build_train_step(jmodel, None if priors is None else jnp.asarray(priors),
+                                    priors is None, (image, image), jdtype, pixel_means=MEANS)
         for _ in range(steps):
             state, m = step(state, data)
             out.append((float(m["loss_l"]), float(m["loss_c"]),
@@ -264,21 +285,21 @@ def jax_steps(pair, dtype_name, frozen=False, data=None, steps=2):
     return out
 
 
-def port_steps(pair, dtype_name, frozen=False, data=None, steps=2):
+def port_steps(pair, dtype_name, frozen=False, data=None, steps=2, lr=1e-3):
     """The port's train steps, as :func:`jax_steps` gives them."""
     _, tdtype = DTYPES[dtype_name]
     _, variables, _, jcfg, tcfg = pair
     image = int(tcfg.MODEL.IMAGE_SIZE[0])
-    tmodel, fmaps = create_model(tcfg.MODEL)
-    tmodel = init_model(tmodel)
+    tmodel = init_model(create_model(tcfg.MODEL)[0])
     tmodel.load_state_dict(bridge(variables, tcfg.MODEL), strict=True)
     if tdtype == torch.float64:
         tmodel.double()
     if frozen:
         _freeze_statistics(tmodel)
-    priors = torch.from_numpy(create_priors(tcfg.MODEL, fmaps))
+    priors = _priors(tcfg.MODEL)
+    priors = None if priors is None else torch.from_numpy(priors)
     data = {k: torch.from_numpy(v) for k, v in (data or batch(image)).items()}
-    tc = _train_cfg(tcfg)
+    tc = _train_cfg(tcfg, lr)
     tmodel.train()
     opt = configure_optimizer(tc, tmodel.named_parameters())
     step = build_train_step(tmodel, priors, opt, configure_lr_scheduler(tc, 1), tdtype, MEANS)
