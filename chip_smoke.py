@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB and YOLO paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512 and export paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -119,13 +119,36 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward (the raw outputs of two test images) and one float32 step at
    batch 4, card against CPU (``YOLO``'s limits); the train step at the
    yml's batch,
-   batch-1 ``predict`` p50 / p90 and batch-32 ``predict_batch`` img/s.
+   batch-1 ``predict`` p50 / p90 and batch-32 ``predict_batch`` img/s;
+13. the rest of the zoo and the serving export (``check_zoo``):
+   a. SSD300-ResNet50 (``experiments/cfgs/ssd_resnet50_train_voc.yml``'s model
+   and recipe, ``config.ssd_resnet50_config()``: 8732 priors, 53
+   BatchNorms, bf16, batch 32) and b. SSD512-VGG16
+   (``ssd_vgg16_train_voc_512.yml``, ``config.ssd512_vgg16_config()``: maps
+   64/32/16/8/4/2/1, 24,564 priors, batch 16, images drawn at 512 px), each
+   through ``drive_model`` cut as phase 11 (64 / 32 images, 3 epochs,
+   ``PROB -1``, ``TEST_SCOPE`` the last epoch): losses finite and falling,
+   every BatchNorm's running variance moved, resume equal, rows identical
+   with the kernel and the plain NMS, the float32 forward and one float32
+   step (batch 4 / 2) card against CPU within phase 11's limits, the train
+   step, batch-1 ``predict`` p50 / p90 and batch-32 ``predict_batch`` img/s;
+   c. the export (``check_export``): the registered operator
+   ``ssds_tpu_torch::nms_mask`` bit-identical to the plain version at
+   ``[21 / 672 / 1344, 200]``; SSD300-VGG16 (default config, bf16, seeded
+   weights) exported with ``ssds_tpu_torch.export`` (symbolic batch) on the
+   card and served by a fresh process that imports torch, the operator's
+   registration and no model module (``EXPORT_SERVER``) at batches 1, 3 and
+   32, the NMS kernel launched once inside the program at each, its rows
+   identical to the in-process detector's unpruned rows (a symbolic batch
+   takes no prune); the program's batch-1 p50 and batch-32 img/s beside the
+   in-process predict function's, ``predict``'s and ``predict_batch``'s.
 
 Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
-``{"coco": {...}}``, ``{"heads": {"fssd": {...}, "rfb": {...}}}`` and
-``{"yolo": {"yolo_v3": {...}, "yolo_v2": {...}}}``, then
+``{"coco": {...}}``, ``{"heads": {"fssd": {...}, "rfb": {...}}}``,
+``{"yolo": {"yolo_v3": {...}, "yolo_v2": {...}}}``, ``{"zoo": {"resnet50":
+{...}, "ssd512": {...}}}`` and ``{"export": {...}}``, then
 ``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4, 9, 10,
-11 and 12's serving, ``launches_by_path`` every path), the card's name and
+11, 12 and 13's serving, ``launches_by_path`` every path), the card's name and
 power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
 line, the NMS entry's ``ms`` is device time alone (launches queued behind a
@@ -222,6 +245,15 @@ YOLO = {"yolo_v3": (10647, 72, 2e-2, 5e-5), "yolo_v2": (845, 22, 2e-2, 5e-5)}
 # eval-mode network whose raw outputs reach 1e9 (12 steps).
 YOLO_EPOCHS = {"yolo_v3": 20, "yolo_v2": 40}
 VOC0712_TRAINVAL = 16551
+# phase 13: SSD300-ResNet50 and SSD512-VGG16, each with its priors, its
+# BatchNorms (ResNet-50's 53; none in VGG16) and its float32 step's batch
+# (SSD512's at 2, as phase 8's SSD300-VGG16: a 512 px VGG16 step on the CPU
+# is most of the phase), the limits phase 11's; then the export of
+# SSD300-VGG16, served at EXPORT_BATCHES by a fresh process
+ZOO = {"resnet50": (SSD300_PRIORS, 53, HEAD_F32_BATCH), "ssd512": (24564, 0, 2)}
+ZOO_UPDATE_TOL, ZOO_STATS_RTOL = 2e-2, 5e-5
+EXPORT_BATCHES = (1, 3, 32)
+EXPORT_NMS_SHAPES = [(21, 200), (672, 200), (1344, 200)]
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -527,7 +559,7 @@ def train_step_ms(solver):
 def drive_model(what, make_cfg, seed, dev, card, log, *, num_boxes, batchnorms, f32_batch,
                 update_tol, stats_rtol, loss_falls=False):
     """Train, resume, deploy, serve and time one model over the synthetic VOC
-    (phases 9, 11 and 12), its images drawn at the model's input size;
+    (phases 9, 11, 12 and 13), its images drawn at the model's input size;
     ``make_cfg(root, exp)`` gives its config. Checks the box count (the
     priors, or a YOLO head's decoded boxes an image) and the BatchNorm count,
     with ``loss_falls`` that the last epoch's mean loss is below the first's,
@@ -728,7 +760,7 @@ def drive_model(what, make_cfg, seed, dev, card, log, *, num_boxes, batchnorms, 
         f"float32 step card and CPU {out['f32_step_s']:.1f}")
     if (max(f32["loss_rel_err"].values()) > STEP_RTOL
             or f32["update_err_over_max_update"] > update_tol
-            or f32["stats_rel_err_max"] > stats_rtol):
+            or f32.get("stats_rel_err_max", 0.0) > stats_rtol):
         raise AssertionError(f"{what} float32 step card vs CPU outside {STEP_RTOL} / "
                              f"{update_tol} / {stats_rtol}: {f32}")
     return out
@@ -844,6 +876,156 @@ def check_yolo(seed, dev, card, log):
         f"{train_seen[-1]} images: step * batch, the warm-up on at every step (< 12800)")
     if train_seen != want or max(train_seen) >= 12800:
         raise AssertionError(f"YOLOv2 seen images {train_seen}, want {want}")
+    return out
+
+
+def check_zoo(seed, dev, card, log):
+    """Phase 13: SSD300-ResNet50 and SSD512-VGG16 trained, resumed, deployed
+    and served (``drive_model``, their ymls' models and recipes cut as phase
+    11's), then the serving export (:func:`check_export`)."""
+    from ssds_tpu_torch.config import MODELS
+
+    out = {}
+    for name, (num_boxes, batchnorms, f32_batch) in ZOO.items():
+        out[name] = drive_model(MODELS[name][0], head_config(name), seed, dev, card, log,
+                                num_boxes=num_boxes, batchnorms=batchnorms, f32_batch=f32_batch,
+                                update_tol=ZOO_UPDATE_TOL, stats_rtol=ZOO_STATS_RTOL,
+                                loss_falls=True)
+    out["export"] = check_export(seed, dev, card, log)
+    return out
+
+
+def rows_times(call, imgs):
+    """``call(images_u8) -> rows on the host``: its batch-1 latencies (50
+    after 10, on ``imgs[:1]``) and its img/s on all of ``imgs`` (10 calls
+    after 2). Each call uploads, runs and downloads, so each is synchronised."""
+    for _ in range(10):
+        call(imgs[:1])
+    lat = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        call(imgs[:1])
+        lat.append(time.perf_counter() - t0)
+    for _ in range(2):
+        call(imgs)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        call(imgs)
+    return lat, 10 * len(imgs) / (time.perf_counter() - t0)
+
+
+# The serving process of phase 13c: torch, the NMS operator's registration and
+# the artifact, nothing else of the port. It serves each batch once with the
+# kernel's launches counted around the call, saves the rows and times the
+# program (argv: artifact dir, images .npy, rows .npz, repo root).
+EXPORT_SERVER = r"""
+import json, sys, time
+import numpy as np, torch
+from ssds_tpu_torch.export import load_exported
+from ssds_tpu_torch.ops.cuda import nms as cuda_nms
+sys.path.insert(0, sys.argv[4])
+from chip_smoke import EXPORT_BATCHES, rows_times
+t0 = time.perf_counter()
+predict, meta = load_exported(sys.argv[1])
+load_s = time.perf_counter() - t0
+imgs = np.load(sys.argv[2])
+dev = torch.device(meta["device"])
+launches, rows = {}, {}
+for b in EXPORT_BATCHES:
+    x = torch.from_numpy(imgs[:b]).to(dev)
+    before = cuda_nms.nms_mask.launches
+    rows[str(b)] = predict(x).cpu().numpy()
+    launches[str(b)] = cuda_nms.nms_mask.launches - before
+np.savez(sys.argv[3], **rows)
+lat, ips = rows_times(lambda x: predict(torch.from_numpy(x).to(dev)).cpu(), imgs)
+print(json.dumps({"meta": meta, "load_s": load_s, "launches": launches, "lat": lat, "img_s": ips,
+                  "modules": sorted(m for m in sys.modules if m.startswith(("ssds_tpu", "jax")))}))
+"""
+
+
+def check_export(seed, dev, card, log):
+    """Phase 13c: the registered NMS operator on the card against the plain
+    version; SSD300-VGG16 (default config, bf16, seeded weights) exported
+    with a symbolic batch on the card, reloaded by a fresh process that
+    imports no model module (``EXPORT_SERVER``), served at
+    ``EXPORT_BATCHES`` with the kernel launched inside the program, its rows
+    identical to the in-process detector's unpruned rows; the program's
+    batch-1 latency and batch-32 img/s beside the in-process ones."""
+    import dataclasses
+    import subprocess
+
+    from ssds_tpu_torch.config import default_config
+    from ssds_tpu_torch.detector import ObjectDetector, Predict
+    from ssds_tpu_torch.export import export_detector
+    from ssds_tpu_torch.ops.nms import nms_mask_torch
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "nms_op_max_abs_err": check_nms_kernel(
+        torch.ops.ssds_tpu_torch.nms_mask, nms_mask_torch, seed, EXPORT_NMS_SHAPES)}
+    log(f"registered operator ssds_tpu_torch::nms_mask on the card: bit-identical to the plain "
+        f"version at {EXPORT_NMS_SHAPES}")
+    det = ObjectDetector(default_config(), device=dev, seed=seed)
+    unpruned = Predict(det.model, det.means, det.priors,
+                       dataclasses.replace(det.post, pre_nms_top_n=0), det.dtype)
+    imgs = np.random.default_rng(seed).integers(
+        0, 256, (max(EXPORT_BATCHES), *det.img_hw, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        served_dir = export_detector(det, os.path.join(tmp, "served"))
+        out["export_s"] = time.perf_counter() - t0
+        out["artifact_mb"] = os.path.getsize(os.path.join(served_dir, "predict.pt2")) / 1e6
+        np.save(os.path.join(tmp, "imgs.npy"), imgs)
+        rows_path = os.path.join(tmp, "rows.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", EXPORT_SERVER, served_dir,
+                               os.path.join(tmp, "imgs.npy"), rows_path, REPO],
+                              capture_output=True, text=True, timeout=600, cwd=REPO,
+                              env=dict(os.environ, PYTHONPATH=REPO))
+        out["server_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the export's serving process failed:\n{proc.stderr[-4000:]}")
+        served = json.loads(proc.stdout.strip().splitlines()[-1])
+        with np.load(rows_path) as f:
+            rows = {int(b): f[b] for b in f.files}
+    bad_modules = [m for m in served["modules"] if m.startswith(("jax", "ssds_tpu.")) or m in (
+        "ssds_tpu", "ssds_tpu_torch.config", "ssds_tpu_torch.detector")
+        or m.startswith("ssds_tpu_torch.models")]
+    out["server_modules"] = served["modules"]
+    out["nms_launches_export"] = sum(served["launches"].values())
+    if bad_modules or served["meta"]["batch"] != "symbolic":
+        raise AssertionError(f"the serving process imported {bad_modules}, meta {served['meta']}")
+    for b in EXPORT_BATCHES:
+        with torch.no_grad():
+            want = unpruned(torch.from_numpy(imgs[:b]).to(dev)).cpu().numpy()
+        if served["launches"][str(b)] != 1:
+            raise AssertionError(f"the exported program at batch {b} launched the NMS kernel "
+                                 f"{served['launches'][str(b)]} times")
+        if rows[b].shape != (b, 21, 100, 5) or not np.array_equal(rows[b], want):
+            raise AssertionError(f"exported rows at batch {b} != the in-process unpruned rows")
+    log(f"exported SSD300-VGG16 bf16 (symbolic batch, {det.device}) in {out['export_s']:.1f} s, "
+        f"predict.pt2 {out['artifact_mb']:.1f} MB; a fresh process (modules of the port "
+        f"{served['modules']}) loaded it in {served['load_s']:.2f} s and served batches "
+        f"{list(EXPORT_BATCHES)}: NMS kernel launches {served['launches']}, rows identical to the "
+        "in-process unpruned rows")
+
+    # times: the program in its process; in this one the same work (upload,
+    # the unpruned predict function, download) and predict / predict_batch
+    lat, ips = rows_times(lambda x: unpruned(torch.from_numpy(x).to(dev)).cpu(), imgs)
+    plat, pips = serve_times(det, imgs[0], list(imgs))
+    out.update(
+        export_b1_p50_ms=float(np.percentile(served["lat"], 50)) * 1e3,
+        export_b1_p90_ms=float(np.percentile(served["lat"], 90)) * 1e3,
+        export_batch32_img_s=served["img_s"],
+        inprocess_b1_p50_ms=float(np.percentile(lat, 50)) * 1e3, inprocess_batch32_img_s=ips,
+        predict_b1_p50_ms=float(np.percentile(plat, 50)) * 1e3, predict_batch32_img_s=pips)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"SSD300-VGG16 bf16 unpruned rows (upload, program, download): exported program batch-1 "
+        f"p50 {out['export_b1_p50_ms']:.3f} ms (p90 {out['export_b1_p90_ms']:.3f}), batch 32 "
+        f"{out['export_batch32_img_s']:.1f} img/s; in-process Predict batch-1 p50 "
+        f"{out['inprocess_b1_p50_ms']:.3f} ms, batch 32 "
+        f"{out['inprocess_batch32_img_s']:.1f} img/s; "
+        f"predict p50 {out['predict_b1_p50_ms']:.3f} ms, predict_batch 32 (pruned) "
+        f"{out['predict_batch32_img_s']:.1f} img/s; phase 13c {out['phase_s']:.1f} s ({card})")
     return out
 
 
@@ -1266,6 +1448,10 @@ def main(argv=None):
     # -- 12. YOLOv3-DarkNet53-416 and YOLOv2-DarkNet19-416 -----------------------
     yolo = check_yolo(args.seed, dev, card, log)
     report["yolo"] = yolo
+
+    # -- 13. SSD300-ResNet50, SSD512-VGG16 and the serving export ----------------
+    zoo = check_zoo(args.seed, dev, card, log)
+    report["zoo"] = zoo
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -1304,6 +1490,18 @@ def main(argv=None):
         "predict_batch32_img_s", "f32_raw0_max_abs_err", "f32_raw1_max_abs_err",
         "f32_raw2_max_abs_err", "f32_step",
         "train_model_s", "phase_s", "card") if k in y} for name, y in yolo.items()}}))
+    export = zoo["export"]
+    log(json.dumps({"zoo": {name: {k: z[k] for k in (
+        "boxes", "batchnorms", "epoch_loss", "eval_map", "test_map", "nms_launches_eval",
+        "nms_launches_test", "nms_launches_serve", "bn_running_var_moved", "train_step_ms",
+        "train_img_s", "predict_b1_p50_ms", "predict_b1_p90_ms", "predict_batch32_img_s",
+        "f32_loc_max_abs_err", "f32_conf_max_abs_err", "f32_step", "train_model_s", "phase_s",
+        "card") if k in z} for name, z in zoo.items() if name != "export"}}))
+    log(json.dumps({"export": {k: export[k] for k in (
+        "export_s", "artifact_mb", "server_s", "server_modules", "nms_launches_export",
+        "export_b1_p50_ms", "export_b1_p90_ms", "export_batch32_img_s", "inprocess_b1_p50_ms",
+        "inprocess_batch32_img_s", "predict_b1_p50_ms", "predict_batch32_img_s", "phase_s",
+        "card")}}))
     head_paths = {}
     for head, h in heads.items():
         head_paths[f"{head}_vgg16_serve"] = h["nms_launches_serve"]
@@ -1311,12 +1509,19 @@ def main(argv=None):
     for name, y in yolo.items():  # not `kind`: main's, printed on the last line
         head_paths[f"{name}_serve"] = y["nms_launches_serve"]
         head_paths[f"{name}_train"] = y["nms_launches_eval"] + y["nms_launches_test"]
+    for name, path in (("resnet50", "ssd300_resnet50"), ("ssd512", "ssd512_vgg16")):
+        head_paths[f"{path}_serve"] = zoo[name]["nms_launches_serve"]
+        head_paths[f"{path}_train"] = zoo[name]["nms_launches_eval"] + \
+            zoo[name]["nms_launches_test"]
+    head_paths["export_serve"] = export["nms_launches_export"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55",
         "launches": launches + lite["nms_launches_serve"] + coco["nms_launches_serve"]
         + sum(h["nms_launches_serve"] for h in heads.values())
-        + sum(y["nms_launches_serve"] for y in yolo.values()),
+        + sum(y["nms_launches_serve"] for y in yolo.values())
+        + zoo["resnet50"]["nms_launches_serve"] + zoo["ssd512"]["nms_launches_serve"]
+        + export["nms_launches_export"],
         "launches_by_path": {"ssd300_vgg16_serve": launches,
                              "ssd_lite_mobilenetv2_serve": lite["nms_launches_serve"],
                              "ssd_lite_mobilenetv2_coco_serve": coco["nms_launches_serve"],
@@ -1326,7 +1531,8 @@ def main(argv=None):
                              + training["nms_launches_test"],
                              "ssd_lite_mobilenetv2_train": lite["nms_launches_eval"]
                              + lite["nms_launches_test"], **head_paths},
-        "max_abs_err": nms_err, "ms": min(b32["kernel_ms"]), "plain_ms": min(b32["plain_ms"]),
+        "max_abs_err": max(nms_err, export["nms_op_max_abs_err"]),
+        "ms": min(b32["kernel_ms"]), "plain_ms": min(b32["plain_ms"]),
         "bound_ms": b32["bound"]["ms"], "bound_by": b32["bound"]["by"], "library_ms": None,
         "shape": [672, 200], "wrapper_ms": min(b32["wrapper_ms"]),
         "ms_21x200": min(b1["kernel_ms"]), "plain_ms_21x200": min(b1["plain_ms"]),

@@ -155,8 +155,9 @@ def ssd_lite_mobilenetv2_coco_config() -> AttrDict:
     return cfg
 
 
-def _vgg16_voc_config(ssds: str, feature_layer, scope: str, name: str) -> AttrDict:
-    """The shared body of ``experiments/cfgs/{fssd,rfb}_vgg16_train_voc.yml``."""
+def _voc_config(ssds: str, feature_layer, scope: str, name: str) -> AttrDict:
+    """The shared body of ``experiments/cfgs/{fssd,rfb}_vgg16_train_voc.yml``,
+    ``ssd_vgg16_train_voc_512.yml`` and ``ssd_resnet50_train_voc.yml``."""
     cfg = default_config()
     cfg.MODEL.update(SSDS=ssds, FEATURE_LAYER=feature_layer,
                      SIZES=[0.1, 0.2, 0.38, 0.56, 0.74, 0.92, 1.1])
@@ -174,7 +175,7 @@ def fssd_vgg16_config() -> AttrDict:
     """``experiments/cfgs/fssd_vgg16_train_voc.yml`` (FSSD300-VGG16 on VOC07+12)
     over the defaults, written out for machines without PyYAML.
     ``tests/test_torch_port_fssd.py`` holds it equal to the file."""
-    return _vgg16_voc_config(
+    return _voc_config(
         "fssd", [[[22, 34, "S"], [512, 1024, 256]],
                  [["", "S", "S", "S", "0", "0"], [256, 512, 512, 256, 256, 256]]],
         "base,norm,extras,transforms,fusion,pyramids,loc,conf", "fssd_vgg16_voc")
@@ -184,7 +185,7 @@ def rfb_vgg16_config() -> AttrDict:
     """``experiments/cfgs/rfb_vgg16_train_voc.yml`` (RFBNet300-VGG16 on VOC07+12)
     over the defaults, written out for machines without PyYAML.
     ``tests/test_torch_port_rfb.py`` holds it equal to the file."""
-    return _vgg16_voc_config("rfb", [[22, "R", "S", "S", "", ""], [512, 1024, 512, 256, 256, 256]],
+    return _voc_config("rfb", [[22, "R", "S", "S", "", ""], [512, 1024, 512, 256, 256, 256]],
                              "base,norm,extras,loc,conf", "rfb_vgg16_voc")
 
 
@@ -222,6 +223,32 @@ def yolo_v2_darknet19_config() -> AttrDict:
                             "yolo_v2_darknet19_voc")
 
 
+def ssd_resnet50_config() -> AttrDict:
+    """``experiments/cfgs/ssd_resnet50_train_voc.yml`` (SSD300-ResNet50 on
+    VOC07+12, taps at the ends of stages 2-4) over the defaults, written out
+    for machines without PyYAML. ``tests/test_torch_port_resnet.py`` holds it
+    equal to the file."""
+    cfg = _voc_config("ssd", [[7, 13, 16, "S", "S", ""], [512, 1024, 2048, 512, 256, 256]],
+                            "base,norm,extras,loc,conf", "ssd_resnet50_voc")
+    cfg.MODEL.NETS = "resnet_50"
+    return cfg
+
+
+def ssd512_vgg16_config() -> AttrDict:
+    """``experiments/cfgs/ssd_vgg16_train_voc_512.yml`` (SSD512-VGG16 on
+    VOC07+12: seven maps, 24,564 priors, batch 16) over the defaults, written
+    out for machines without PyYAML. ``tests/test_torch_port_cfgs.py`` holds
+    it equal to the file."""
+    cfg = _voc_config("ssd", [[22, 34, "S", "S", "S", "S", "S"],
+                                    [512, 1024, 512, 256, 256, 256, 256]],
+                            "base,norm,extras,loc,conf", "ssd_vgg16_voc_512")
+    cfg.MODEL.update(IMAGE_SIZE=[512, 512], SIZES=[0.07, 0.15, 0.3, 0.45, 0.6, 0.75, 0.9, 1.05],
+                     ASPECT_RATIOS=[[2], [2, 3], [2, 3], [2, 3], [2, 3], [2], [2]])
+    cfg.TRAIN.BATCH_SIZE = 16
+    cfg.TEST.BATCH_SIZE = 32
+    return cfg
+
+
 #: the full-width configurations the port's tools take by short name:
 #: (the name that reports print, the config)
 MODELS = {
@@ -231,6 +258,8 @@ MODELS = {
     "rfb": ("RFBNet-VGG16-300", rfb_vgg16_config),
     "yolo_v3": ("YOLOv3-DarkNet53-416", yolo_v3_darknet53_config),
     "yolo_v2": ("YOLOv2-DarkNet19-416", yolo_v2_darknet19_config),
+    "resnet50": ("SSD300-ResNet50", ssd_resnet50_config),
+    "ssd512": ("SSD512-VGG16", ssd512_vgg16_config),
 }
 
 #: process-global singleton, for reference-API parity

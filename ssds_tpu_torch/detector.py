@@ -11,7 +11,8 @@ softmax, decode and detect in float32, with the batched NMS as the CUDA
 kernel on a GPU. A YOLO head has no priors: it decodes its own boxes
 (normalised to the model's input size) and they go through
 ``detect_decoded``. The host uploads one ``[B, H, W, 3]`` uint8 batch and
-downloads one ``[B, C, max_det, 5]`` float32 block.
+downloads one ``[B, C, max_det, 5]`` float32 block. The device part is one
+module, :class:`Predict`, which :mod:`ssds_tpu_torch.export` exports as is.
 
 An image that is not at the model's input size is resized on the host by
 :func:`ssds_tpu_torch.data.image_ops.resize_linear`, numpy bit-equal to the
@@ -36,6 +37,38 @@ def _resize(img: np.ndarray, hw) -> np.ndarray:
     if img.shape[:2] == tuple(hw):
         return img
     return resize_linear(img, hw)
+
+
+class Predict(torch.nn.Module):
+    """The pure predict function that :class:`ObjectDetector` serves and
+    :mod:`ssds_tpu_torch.export` exports: uint8 BGR ``[B, H, W, 3]`` at the
+    model's size -> dense ``[B, C, max_det, 5]`` float32 rows, through the
+    mean subtraction, the NHWC -> NCHW permute, the forward in ``dtype``,
+    and ``detect`` against ``priors`` (``detect_decoded`` when ``priors`` is
+    None: a YOLO head). The means and priors are buffers, so an exported
+    program carries them."""
+
+    def __init__(self, model: torch.nn.Module, means: torch.Tensor, priors, post,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.model, self.post, self.dtype = model, post, dtype
+        self.register_buffer("means", means)
+        self.register_buffer("priors", priors)
+
+    def raw(self, img_u8: torch.Tensor, phase: str = "eval"):
+        """The model's outputs: eval-phase ``(loc, conf)`` float32, a YOLO
+        head's ``(boxes, scores)``, or ``phase="train"``'s raw outputs."""
+        x = (img_u8.float() - self.means).permute(0, 3, 1, 2).contiguous()
+        return self.model(x.to(self.dtype), phase=phase)
+
+    def detect(self, out) -> torch.Tensor:
+        """:meth:`raw`'s eval outputs -> the dense rows."""
+        if self.priors is None:
+            return detect_decoded(*out, self.post)
+        return detect(*out, self.priors, self.post)
+
+    def forward(self, img_u8: torch.Tensor) -> torch.Tensor:
+        return self.detect(self.raw(img_u8))
 
 
 class ObjectDetector:
@@ -84,6 +117,7 @@ class ObjectDetector:
         self.means = torch.tensor(cfg.DATASET.PIXEL_MEANS, dtype=torch.float32,
                                   device=self.device)
         self.post = PostProcessConfig.from_cfg(cfg.POST_PROCESS)
+        self.predictor = Predict(self.model, self.means, self.priors, self.post, self.dtype)
 
     @torch.no_grad()
     def forward(self, img_u8: torch.Tensor, phase: str = "eval"):
@@ -91,22 +125,19 @@ class ObjectDetector:
         eval-phase ``(loc [B,K,4], conf [B,K,C])`` float32; for a YOLO head
         ``(boxes [B,K,4], scores [B,K,C])``. ``phase="train"`` gives the raw
         outputs instead (the model stays in eval mode)."""
-        x = (img_u8.float() - self.means).permute(0, 3, 1, 2).contiguous()
-        return self.model(x.to(self.dtype), phase=phase)
+        return self.predictor.raw(img_u8, phase)
 
     def postprocess(self, out) -> torch.Tensor:
         """:meth:`forward`'s outputs -> dense ``[B, C, max_det, 5]`` rows:
         ``detect`` against the priors, or ``detect_decoded`` for a YOLO head."""
-        if self.priors is None:
-            return detect_decoded(*out, self.post)
-        return detect(*out, self.priors, self.post)
+        return self.predictor.detect(out)
 
     @torch.no_grad()
     def detect_rows(self, batch_u8: np.ndarray) -> torch.Tensor:
         """``[B, H, W, 3]`` uint8 at model size -> dense ``[B, C, max_det, 5]``
-        detections on ``device`` (not synchronised)."""
+        detections on ``device`` (not synchronised): :class:`Predict`."""
         x = torch.from_numpy(np.ascontiguousarray(batch_u8)).to(self.device)
-        return self.postprocess(self.forward(x))
+        return self.predictor(x)
 
     def predict_batch(self, imgs, threshold: float = 0.6):
         """Batched :meth:`predict`: images of any sizes are resized on the

@@ -177,10 +177,12 @@ class Float32BatchNorm(BatchNorm):
 
 
 def no_autocast(x: torch.Tensor):
-    """A region where autocast is off on ``x``'s device (nothing to switch
-    off on the ``meta`` device, where models are measured)."""
-    if torch.amp.is_autocast_available(x.device.type):
-        return torch.autocast(x.device.type, enabled=False)
+    """A region where autocast is off on ``x``'s device: nothing to switch
+    off where it is not on (serving, which ``torch.export`` traces, or the
+    ``meta`` device, where models are measured)."""
+    device = x.device.type
+    if torch.amp.is_autocast_available(device) and torch.is_autocast_enabled(device):
+        return torch.autocast(device, enabled=False)
     return contextlib.nullcontext()
 
 
@@ -289,12 +291,15 @@ _RESIZE_CACHE: dict = {}
 
 def _resize_matrix(n_in: int, n_out: int, x: torch.Tensor) -> torch.Tensor:
     """:func:`_resize_weights` rounded to ``x``'s dtype, then held in float32
-    on ``x``'s device; made once for each size, dtype and device."""
+    on ``x``'s device; made once for each size, dtype and device, but not
+    kept from a ``torch.export`` trace, whose tensors are the trace's own."""
     key = (n_in, n_out, x.dtype, x.device)
-    if key not in _RESIZE_CACHE:
-        w = torch.from_numpy(_resize_weights(n_in, n_out)).to(x.dtype).float()
-        _RESIZE_CACHE[key] = w.to(x.device)
-    return _RESIZE_CACHE[key]
+    w = _RESIZE_CACHE.get(key)
+    if w is None:
+        w = torch.from_numpy(_resize_weights(n_in, n_out)).to(x.dtype).float().to(x.device)
+        if not torch.compiler.is_compiling():
+            _RESIZE_CACHE[key] = w
+    return w
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -19,7 +19,9 @@ cannot run.
 :func:`nms_mask` takes the plain version
 (:func:`ssds_tpu_torch.ops.nms.nms_mask_torch`) for a tensor on the CPU,
 and only then. For a CUDA tensor it launches the kernel or raises: there
-is no fallback.
+is no fallback. :func:`nms_mask_op` registers the same as the operator
+``torch.ops.ssds_tpu_torch.nms_mask``, which ``torch.export`` captures and
+an exported program calls (``ssds_tpu_torch/export.py``).
 """
 
 from __future__ import annotations
@@ -255,3 +257,29 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float) ->
 
 
 nms_mask.launches = 0
+
+
+# The kernel as an operator that ``torch.export`` can capture: the wrapper
+# reads data pointers and launches through ctypes, which a trace cannot
+# follow, so an exported program calls ``ssds_tpu_torch::nms_mask`` instead.
+# Its CUDA implementation is the wrapper above (the kernel, counted in
+# ``nms_mask.launches``, or an error: no fallback), its CPU implementation
+# the plain version, and its fake implementation gives the mask's shape and
+# dtype without running either. Importing this module registers it, which
+# is all a process that loads an exported program needs of the port.
+@torch.library.custom_op("ssds_tpu_torch::nms_mask", mutates_args=(), device_types="cuda")
+def nms_mask_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """``torch.ops.ssds_tpu_torch.nms_mask``: :func:`nms_mask` as an operator."""
+    return nms_mask(boxes, scores, iou_threshold)
+
+
+@nms_mask_op.register_kernel("cpu")
+def _nms_mask_op_cpu(boxes: torch.Tensor, scores: torch.Tensor,
+                     iou_threshold: float) -> torch.Tensor:
+    return nms_mask_torch(boxes, scores, iou_threshold)
+
+
+@nms_mask_op.register_fake
+def _nms_mask_op_fake(boxes: torch.Tensor, scores: torch.Tensor,
+                      iou_threshold: float) -> torch.Tensor:
+    return scores.new_empty(scores.shape, dtype=torch.bool)

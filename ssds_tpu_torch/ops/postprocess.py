@@ -11,9 +11,13 @@ row).
 
 All (image x class) slots of a batch go through ONE batched NMS call:
 :func:`ssds_tpu_torch.ops.cuda.nms.nms_mask`, which is the CUDA kernel for
-CUDA tensors and the plain version for CPU tensors. Every selection sorts
-with ``stable=True`` and slices, so equal scores rank index-ascending as
-``lax.top_k`` ranks them (``torch.topk`` promises no tie order on CUDA).
+CUDA tensors and the plain version for CPU tensors (under ``torch.export``
+the same through the registered op ``ssds_tpu_torch::nms_mask``). The
+class-agnostic prune runs at a concrete batch of 4 or more only: a batch
+that ``torch.export`` leaves symbolic takes no prune (:func:`_static_ge`).
+Every selection sorts with ``stable=True`` and slices, so equal scores rank
+index-ascending as ``lax.top_k`` ranks them (``torch.topk`` promises no tie
+order on CUDA).
 """
 
 from __future__ import annotations
@@ -40,9 +44,9 @@ class PostProcessConfig:
     # high-rank boxes do not starve lower-ranked detections).
     top_k: int = 200
     variance: tuple = (0.1, 0.2)
-    # Class-agnostic pre-prune at batch >= 4: keep only the pre_nms_top_n
-    # priors with the highest max-over-foreground score before the per-class
-    # selection (0 = off, exact reference semantics).
+    # Class-agnostic pre-prune at a concrete batch >= 4: keep only the
+    # pre_nms_top_n priors with the highest max-over-foreground score before
+    # the per-class selection (0 = off, exact reference semantics).
     pre_nms_top_n: int = 0
 
     @classmethod
@@ -58,6 +62,27 @@ class PostProcessConfig:
             variance=tuple(post.VARIANCE),
             pre_nms_top_n=int(post.get("PRE_NMS_TOP_N", 0)),
         )
+
+
+def _static_ge(dim, n: int) -> bool:
+    """``dim >= n`` for a concrete size; False for a symbolic one (a batch
+    left dynamic by ``torch.export``), where a comparison would install a
+    guard that specialises the program to one side. The JAX package's rule
+    (``ssds_tpu/ops/postprocess.py::_static_ge``): an artifact must serve any
+    batch size, so a symbolic batch takes the formulation that is right at
+    every size, here the unpruned one."""
+    return isinstance(dim, int) and dim >= n
+
+
+def _nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The keep mask: the registered op ``ssds_tpu_torch::nms_mask`` while
+    ``torch.export`` traces (it cannot trace the wrapper's pointer reads and
+    ``ctypes`` launch), the wrapper :func:`nms_mask` itself otherwise (the
+    op's dispatch would add host time to every eager call). Both launch
+    ``csrc/nms.cu`` on CUDA tensors and take the plain version on CPU ones."""
+    if torch.compiler.is_exporting():
+        return torch.ops.ssds_tpu_torch.nms_mask(boxes, scores, float(iou_threshold))
+    return nms_mask(boxes, scores, iou_threshold)
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -84,7 +109,7 @@ def _detect_batched(boxes_per_class: torch.Tensor, scores: torch.Tensor,
     masked = torch.where(scores > config.score_threshold, scores, NEG_INF)
     masked = masked.masked_fill(bg, NEG_INF)  # background: all-invalid slots
 
-    if 0 < config.pre_nms_top_n < k and boxes_per_class.shape[1] == 1 and b >= 4:
+    if 0 < config.pre_nms_top_n < k and boxes_per_class.shape[1] == 1 and _static_ge(b, 4):
         best = torch.amax(masked, dim=1)  # [B, K]
         _, pool_idx = _top_k(best, config.pre_nms_top_n)  # [B, N]
         masked = torch.gather(masked, 2, pool_idx[:, None, :].expand(-1, c, -1))
@@ -100,8 +125,8 @@ def _detect_batched(boxes_per_class: torch.Tensor, scores: torch.Tensor,
                                   cand_idx[..., None].expand(-1, -1, -1, 4))
     cand_boxes = cand_boxes.reshape(b * c, top_k, 4)
 
-    keep = nms_mask(cand_boxes, cand_scores.reshape(b * c, top_k).contiguous(),
-                    config.iou_threshold).reshape(b, c, top_k)
+    keep = _nms(cand_boxes, cand_scores.reshape(b * c, top_k).contiguous(),
+                config.iou_threshold).reshape(b, c, top_k)
 
     # Candidates are score-descending, so the out_k best KEPT scores (stable
     # ties) are exactly the first out_k survivors, in order.

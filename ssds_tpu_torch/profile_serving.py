@@ -4,7 +4,8 @@ For each batch size (default 1 and 32) it serves seeded random uint8 images
 through :class:`~ssds_tpu_torch.detector.ObjectDetector` on the default
 SSD300-VGG16 config (``--model lite``: SSDLite-MobileNetV2-300; ``fssd``:
 FSSD-VGG16-300; ``rfb``: RFBNet-VGG16-300; ``yolo_v3``: YOLOv3-DarkNet53-416;
-``yolo_v2``: YOLOv2-DarkNet19-416, ``config.MODELS``) and reports:
+``yolo_v2``: YOLOv2-DarkNet19-416; ``resnet50``: SSD300-ResNet50; ``ssd512``:
+SSD512-VGG16, ``config.MODELS``) and reports:
 
 - stage times (CUDA events, mean of ``--iters`` after warm-up): host-to-device
   upload, the conv forward (mean subtraction to softmax, or to a YOLO head's
@@ -90,8 +91,9 @@ def profile_batch(det, batch, iters, seed):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2"),
-                        default="vgg")
+    parser.add_argument("--model", default="vgg",
+                        choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2", "resnet50",
+                                 "ssd512"))
     parser.add_argument("--batches", default="1,32")
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)

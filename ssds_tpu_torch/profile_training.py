@@ -3,9 +3,10 @@
 The training counterpart of :mod:`ssds_tpu_torch.profile_serving` (and of the
 JAX package's ``tools/step_profile.py``). On the default SSD300-VGG16 config
 (bf16 forward, SGD with momentum and weight decay; ``--model lite``,
-``fssd``, ``rfb``, ``yolo_v3``, ``yolo_v2``: SSDLite-MobileNetV2-300,
-FSSD-VGG16-300, RFBNet-VGG16-300, YOLOv3-DarkNet53-416, YOLOv2-DarkNet19-416
-with their yml's SGD, ``config.MODELS``; a YOLO step's loss is
+``fssd``, ``rfb``, ``yolo_v3``, ``yolo_v2``, ``resnet50``, ``ssd512``:
+SSDLite-MobileNetV2-300, FSSD-VGG16-300, RFBNet-VGG16-300, YOLOv3-DarkNet53-416,
+YOLOv2-DarkNet19-416, SSD300-ResNet50, SSD512-VGG16 with their yml's SGD,
+``config.MODELS``; a YOLO step's loss is
 ``yolo_loss`` / ``yolo_v2_loss``, the latter with its warm-up on) it runs
 the train step of
 :func:`ssds_tpu_torch.solver.build_train_step` at ``--batch`` (default 32) over
@@ -207,8 +208,9 @@ def profile_step(solver, batch: dict, iters: int) -> dict:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2"),
-                        default="vgg")
+    parser.add_argument("--model", default="vgg",
+                        choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2", "resnet50",
+                                 "ssd512"))
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)

@@ -1,6 +1,7 @@
 """One float32 train step on the card against the same step on the CPU.
 
-    python -m ssds_tpu_torch.tools.step_parity [--model vgg|lite|fssd|rfb|yolo_v3|yolo_v2]
+    python -m ssds_tpu_torch.tools.step_parity [--model vgg|lite|fssd|rfb|yolo_v3|yolo_v2|
+                                                resnet50|ssd512]
         [--batch N] [--seed 0] [--out PATH]
 
 The ``Solver``'s own train step (SGD, the config's LR, momentum and decay),
@@ -15,8 +16,9 @@ units of its channel's standard deviation, a variance's relative to itself.
 
 Models (``config.MODELS``): ``vgg`` is SSD300-VGG16 (the default config),
 ``lite`` SSDLite-MobileNetV2-300, ``fssd`` FSSD-VGG16-300, ``rfb``
-RFBNet-VGG16-300, ``yolo_v3`` YOLOv3-DarkNet53-416 and ``yolo_v2``
-YOLOv2-DarkNet19-416, all at full width. Needs a CUDA device. ``tests/torch_port_step_causes.py`` runs
+RFBNet-VGG16-300, ``yolo_v3`` YOLOv3-DarkNet53-416, ``yolo_v2``
+YOLOv2-DarkNet19-416, ``resnet50`` SSD300-ResNet50 and ``ssd512`` SSD512-VGG16,
+all at full width. Needs a CUDA device. ``tests/torch_port_step_causes.py`` runs
 the same comparison under the changes that name the cause of a gap.
 """
 
@@ -150,8 +152,9 @@ def main(argv=None):
     from ssds_tpu_torch.tools import card_line, need_cuda
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2"),
-                        default="vgg")
+    parser.add_argument("--model", default="vgg",
+                        choices=("vgg", "lite", "fssd", "rfb", "yolo_v3", "yolo_v2", "resnet50",
+                                 "ssd512"))
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--out", default="")

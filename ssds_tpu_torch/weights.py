@@ -34,6 +34,8 @@ DarkNet, YOLO (``net`` ``darknet_*``, ``ssds`` ``yolo_*``):
 ``extras_{n}/{Conv_0,BatchNorm_0}/...``              ``extras_{n}.{0,1}.*``
 ``extras_{n}/ConvBNReLU_{g}/...`` (``ConvSet``)      ``extras_{n}.ConvBNReLU_{g}.{0,1}.*``
 ``conf{k}/Conv_0/...``                               ``conf{k}.*``
+ResNet (``net`` ``resnet_*``: the stem, every residual block):
+``base_layers_{i}/ConvBNReLU_{g}/...``               ``base.{i}.ConvBNReLU_{g}.{0,1}.*``
 ==================================================== ==============================
 
 An RFB ``extras`` list holds one entry for each ``BasicRFB`` and two for each
@@ -54,7 +56,8 @@ dict loads with ``strict=True``.
 
 A flax path alone does not say whether a block's ``ConvBNReLU_{g}`` children
 sit in a flat stack (MobileNetV1's ``conv_dw``, the lite extras) or in an
-``InvertedResidual``'s ``.conv`` (MobileNetV2), nor whether ``base_layers_{i}/Conv_0``
+``InvertedResidual``'s ``.conv`` (MobileNetV2) or under their own names (a
+DarkNet or ResNet residual block), nor whether ``base_layers_{i}/Conv_0``
 is a bare conv (VGG) or the first entry of a ``conv_bn``: the backbone's name,
 ``cfg.MODEL.NETS``, decides (``net``); the head's kind, ``cfg.MODEL.SSDS``
 (``ssds``), decides how ``extra_layers_{j}`` maps. :func:`port_name` gives the
@@ -135,7 +138,7 @@ def _module_name(path: str, net: str, ssds: str, feature_layer) -> str:
     m = _BASE.fullmatch(path)
     if m:
         i, group, entry = m[1], m[2], _ENTRY[m[3]]
-        if net.startswith("darknet"):
+        if net.startswith(("darknet", "resnet")):  # flax's own block names
             return f"base.{i}.{entry}" if group is None else f"base.{i}.ConvBNReLU_{group}.{entry}"
         if group is not None:
             inner = "conv." if net.startswith("mobilenet_v2") else ""

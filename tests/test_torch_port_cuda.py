@@ -744,3 +744,49 @@ def test_yolo_detector_serves_on_the_card(cuda):
     x = torch.from_numpy(imgs)
     for g, c in zip(gpu.forward(x.to(cuda)), cpu.forward(x)):
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("m,n", [(21, 200), (672, 200), (1344, 200)])
+def test_nms_op_cuda_implementation_is_the_kernel(cuda, m, n):
+    """``torch.ops.ssds_tpu_torch.nms_mask`` on CUDA tensors launches the
+    kernel (its count rises) and equals the plain version bit for bit."""
+    for kind in ("random", "dense_overlap", "tied_scores"):
+        rng = np.random.default_rng([m, n, len(kind)])
+        lo, hi, levels = {"random": (0.05, 0.4, 0), "dense_overlap": (0.3, 0.6, 0),
+                          "tied_scores": (0.05, 0.4, 4)}[kind]
+        boxes, scores = _sorted_set(rng, m, n, lo, hi, levels)
+        before = cuda_nms.nms_mask.launches
+        got = torch.ops.ssds_tpu_torch.nms_mask(boxes.to(cuda), scores.to(cuda), 0.45)
+        assert cuda_nms.nms_mask.launches == before + 1
+        assert got.device.type == "cuda" and got.dtype == torch.bool
+        assert torch.equal(got.cpu(), nms_mask_torch(boxes, scores, 0.45)), kind
+
+
+def test_export_round_trip_on_the_card(cuda, tmp_path):
+    """A small SSD-VGG16 (64x64, bf16, 376 priors) exported on the card with
+    a symbolic batch: the reloaded program launches the NMS kernel and its
+    rows at batches 1, 3 and 8 are the in-process detector's unpruned rows."""
+    import dataclasses
+
+    from ssds_tpu_torch.detector import ObjectDetector, Predict
+    from ssds_tpu_torch.export import export_detector, load_exported
+
+    cfg = default_config()
+    cfg.MODEL.IMAGE_SIZE = [64, 64]
+    cfg.MODEL.FEATURE_LAYER = [[22, 34, "S"], [512, 1024, 512]]
+    cfg.MODEL.ASPECT_RATIOS = [[2], [2, 3], [2, 3]]
+    cfg.POST_PROCESS.PRE_NMS_TOP_N = 64  # so that eager serving prunes at batch 8
+    det = ObjectDetector(cfg, device=cuda)
+    predict, meta = load_exported(export_detector(det, str(tmp_path / "served")))
+    assert meta["device"].startswith("cuda") and meta["batch"] == "symbolic"
+    unpruned = Predict(det.model, det.means, det.priors,
+                       dataclasses.replace(det.post, pre_nms_top_n=0), det.dtype)
+    for b in (1, 3, 8):
+        x = torch.from_numpy(np.random.default_rng(b).integers(
+            0, 256, (b, 64, 64, 3), dtype=np.uint8)).to(cuda)
+        before = cuda_nms.nms_mask.launches
+        served = predict(x)
+        torch.cuda.synchronize()
+        assert cuda_nms.nms_mask.launches == before + 1
+        with torch.no_grad():
+            assert torch.equal(served, unpruned(x)), b

@@ -51,7 +51,8 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.tools.synth_coco", "ssds_tpu_torch.models.heads.fssd",
                    "ssds_tpu_torch.models.heads.fssd_lite", "ssds_tpu_torch.models.heads.rfb",
                    "ssds_tpu_torch.models.heads.rfb_lite", "ssds_tpu_torch.ops.yolo",
-                   "ssds_tpu_torch.models.heads.yolo", "ssds_tpu_torch.models.backbones.darknet"):
+                   "ssds_tpu_torch.models.heads.yolo", "ssds_tpu_torch.models.backbones.darknet",
+                   "ssds_tpu_torch.models.backbones.resnet", "ssds_tpu_torch.export"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,

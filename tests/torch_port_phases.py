@@ -6,7 +6,8 @@ checkouts in alternating processes on one card.
         --pairs 5 --out DIR
 
 Phases: 8 (``check_training``, SSD300-VGG16), 11 (``check_heads``, FSSD and
-RFB), 12 (``check_yolo``, YOLOv3 and YOLOv2). Each process runs from a
+RFB), 12 (``check_yolo``, YOLOv3 and YOLOv2), 13 (``check_zoo``,
+SSD300-ResNet50, SSD512-VGG16 and the serving export). Each process runs from a
 checkout's root with that checkout's ``chip_smoke.py`` and port, builds the
 kernels and turns TF32 off as ``chip_smoke.main`` does, runs the phases in
 the order given and writes their numbers to ``DIR/{pair}-{tree}.json``
@@ -25,7 +26,7 @@ import sys
 import numpy as np
 
 PHASES = {"8": ("training", "check_training"), "11": ("heads", "check_heads"),
-          "12": ("yolo", "check_yolo")}
+          "12": ("yolo", "check_yolo"), "13": ("zoo", "check_zoo")}
 TIMES = ("train_step_ms", "eval_img_s", "predict_b1_p50_ms", "predict_b1_p90_ms",
          "predict_batch32_img_s")
 
@@ -67,7 +68,7 @@ def times(report):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="12", help="comma-separated: 8, 11, 12")
+    parser.add_argument("--phases", default="12", help="comma-separated: 8, 11, 12, 13")
     parser.add_argument("--trees", default="", help="one or two checkouts, comma-separated "
                         "(default: this one)")
     parser.add_argument("--pairs", type=int, default=1)

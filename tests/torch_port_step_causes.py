@@ -1,7 +1,7 @@
 """The float32 train step, card against CPU (``ssds_tpu_torch.tools.step_parity``),
 under changes that each remove one candidate cause of a gap.
 
-    python tests/torch_port_step_causes.py [--model vgg|lite|fssd|rfb] [--batch N]
+    python tests/torch_port_step_causes.py [--model vgg|lite|fssd|rfb|resnet50|ssd512] [--batch N]
         [--variants plain,cpu_ranks,deterministic,both,no_cudnn,cpu_float64]
         [--seed 0] [--out PATH]
 
@@ -79,7 +79,8 @@ def variant(name, cfg, device, batch, seed):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb"), default="vgg")
+    parser.add_argument("--model", choices=("vgg", "lite", "fssd", "rfb", "resnet50", "ssd512"),
+                        default="vgg")
     parser.add_argument("--batch", type=int, default=2)
     parser.add_argument("--variants", default="plain,cpu_ranks,deterministic,both")
     parser.add_argument("--seed", type=int, default=0)
