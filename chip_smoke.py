@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512 and export paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8 and device-augmentation paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -143,13 +143,40 @@ Phases, each of which raises on failure (the script then exits non-zero):
    takes no prune); the program's batch-1 p50 and batch-32 img/s beside the
    in-process predict function's, ``predict``'s and ``predict_batch``'s.
 
+14. int8 serving of SSD300-VGG16 (``check_int8``): the default config with
+   ``MODEL.QUANT: int8`` (35 int8 convs, calibrated on JAX's four seeded
+   random images): ``int8_conv`` and ``quantize_act`` (``csrc/int8_conv.cu``)
+   bit-identical to their plain versions at every quantised conv's shape and
+   a 3x3 stride-2 and a 1x1 conv of MobileNetV2 and DarkNet-53, at batches 1
+   and 32 (``tools.int8_bench``), and timed beside their bounds, the plain
+   versions and cuDNN's bf16 conv; ``predict`` x3 and ``predict_batch`` x32
+   with the kernels' launches reset before and read after (35 each a
+   forward); the float32 int8 forward on the card against the CPU on the same
+   quantised state within 1e-2 of the largest output; the int8 and the float
+   mAP on phase 8's checkpoint and test set (int8 no more than 0.05 below);
+   batch-1 p50 / p90 and batch-32 img/s, int8 beside bf16; the exported int8
+   program served by a fresh process (``EXPORT_SERVER``) at batches 1, 3 and
+   32, the int8 kernels launched inside it, its rows identical to the
+   in-process rows;
+15. SSDLite-MobileNetV2-300 on the synthetic COCO at ``PROB 0.6`` with
+   ``DATASET.DEVICE_AUG`` (``check_device_aug``), cut as phase 10 without the
+   eval: the train loader resizes only (its img/s beside phase 10's native
+   sampler); ``Solver.train_model`` for 3 epochs, an augmentation a step on
+   the card (losses finite and falling); a resume at epoch 2 restores the
+   saved state and draws the last epoch's augmentations bit for bit; the
+   train step with and without the augmentation, and ``augment_batch``
+   alone (device ms); box survival, centre spread and pixel mean and std of
+   128 train images augmented on the card against the host recipe's on the
+   same images, within ``tests/test_augment_drift.py``'s bounds.
+
 Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
 ``{"coco": {...}}``, ``{"heads": {"fssd": {...}, "rfb": {...}}}``,
 ``{"yolo": {"yolo_v3": {...}, "yolo_v2": {...}}}``, ``{"zoo": {"resnet50":
-{...}, "ssd512": {...}}}`` and ``{"export": {...}}``, then
+{...}, "ssd512": {...}}}`` and ``{"export": {...}}``, ``{"int8": {...}}`` and ``{"device_aug": {...}}``, then
 ``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4, 9, 10,
-11, 12 and 13's serving, ``launches_by_path`` every path), the card's name and
-power limit, and as the last line
+11, 12 and 13's serving, ``launches_by_path`` every path; ``int8_conv`` and
+``quantize_act`` count phase 14's serving, their times summed over its shapes
+at batch 32), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
 line, the NMS entry's ``ms`` is device time alone (launches queued behind a
 sleep kernel: at a few µs a launch, back-to-back calls time the host); its
@@ -163,6 +190,8 @@ import contextlib
 import copy
 import json
 import os
+import shutil
+import subprocess
 import sys
 import tempfile
 import time
@@ -254,6 +283,14 @@ ZOO = {"resnet50": (SSD300_PRIORS, 53, HEAD_F32_BATCH), "ssd512": (24564, 0, 2)}
 ZOO_UPDATE_TOL, ZOO_STATS_RTOL = 2e-2, 5e-5
 EXPORT_BATCHES = (1, 3, 32)
 EXPORT_NMS_SHAPES = [(21, 200), (672, 200), (1344, 200)]
+# phase 14: int8 SSD300-VGG16 (VGG16's 15 convs, the 8 extras, 6 loc + 6 conf);
+# the kernels checked at batches 1 and 32; the float32 int8 forward card
+# against CPU on the same quantised state within 1e-2 of the largest output
+# (float32 rounding ahead of a quantize_act can move a value across a
+# rounding boundary); the int8 mAP no more than 0.05 below the float mAP
+INT8_CONVS, INT8_BATCHES, INT8_F32_TOL, MAP_DROP = 35, (1, 32), 1e-2, 0.05
+# phase 15: the train images of the device augmentation's statistics
+AUG_STAT_IMAGES = 128
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -363,8 +400,10 @@ def training_config(root, exp):
     return cfg
 
 
-def check_training(seed, dev, card, log):
-    """Phase 8: the training path, end to end; returns the numbers."""
+def check_training(seed, dev, card, log, keep_dir=None):
+    """Phase 8: the training path, end to end; returns the numbers. With
+    ``keep_dir``, the last checkpoint is copied there (``out["checkpoint"]``)
+    for phase 14."""
     from ssds_tpu_torch.data import factory
     from ssds_tpu_torch.data.factory import detection_collate
     from ssds_tpu_torch.detector import ObjectDetector
@@ -417,6 +456,8 @@ def check_training(seed, dev, card, log):
                 raise AssertionError(f"checkpoint or manifest line missing: {manifest}")
             log(f"checkpoint {os.path.basename(ckpt)} ({os.path.getsize(ckpt) / 1e6:.1f} MB), "
                 f"manifest {manifest}")
+            if keep_dir:
+                out["checkpoint"] = shutil.copy(ckpt, keep_dir)
 
             # -- resume, test, deploy
             t_resume = time.perf_counter()
@@ -914,14 +955,16 @@ def rows_times(call, imgs):
     return lat, 10 * len(imgs) / (time.perf_counter() - t0)
 
 
-# The serving process of phase 13c: torch, the NMS operator's registration and
-# the artifact, nothing else of the port. It serves each batch once with the
-# kernel's launches counted around the call, saves the rows and times the
-# program (argv: artifact dir, images .npy, rows .npz, repo root).
+# The serving process of phases 13c and 14: torch, the operators'
+# registrations and the artifact, nothing else of the port. It serves each
+# batch once with the kernels' launches counted around the call (NMS in
+# "launches", the int8 kernels in "int8_launches"), saves the rows and times
+# the program (argv: artifact dir, images .npy, rows .npz, repo root).
 EXPORT_SERVER = r"""
 import json, sys, time
 import numpy as np, torch
 from ssds_tpu_torch.export import load_exported
+from ssds_tpu_torch.ops.cuda import int8_conv as cuda_int8
 from ssds_tpu_torch.ops.cuda import nms as cuda_nms
 sys.path.insert(0, sys.argv[4])
 from chip_smoke import EXPORT_BATCHES, rows_times
@@ -930,17 +973,53 @@ predict, meta = load_exported(sys.argv[1])
 load_s = time.perf_counter() - t0
 imgs = np.load(sys.argv[2])
 dev = torch.device(meta["device"])
-launches, rows = {}, {}
+launches, int8_launches, rows = {}, {}, {}
 for b in EXPORT_BATCHES:
     x = torch.from_numpy(imgs[:b]).to(dev)
     before = cuda_nms.nms_mask.launches
+    before8 = (cuda_int8.quantize_act.launches, cuda_int8.int8_conv.launches)
     rows[str(b)] = predict(x).cpu().numpy()
     launches[str(b)] = cuda_nms.nms_mask.launches - before
+    int8_launches[str(b)] = [cuda_int8.quantize_act.launches - before8[0],
+                             cuda_int8.int8_conv.launches - before8[1]]
 np.savez(sys.argv[3], **rows)
 lat, ips = rows_times(lambda x: predict(torch.from_numpy(x).to(dev)).cpu(), imgs)
-print(json.dumps({"meta": meta, "load_s": load_s, "launches": launches, "lat": lat, "img_s": ips,
+print(json.dumps({"meta": meta, "load_s": load_s, "launches": launches,
+                  "int8_launches": int8_launches, "lat": lat, "img_s": ips,
                   "modules": sorted(m for m in sys.modules if m.startswith(("ssds_tpu", "jax")))}))
 """
+
+
+def serve_exported(det, imgs, tmp):
+    """Export ``det`` (symbolic batch) into ``tmp`` and serve ``imgs`` from a
+    fresh ``EXPORT_SERVER`` process: ``(served json, rows by batch,
+    export seconds, artifact MB, server seconds)``; raises if the process
+    fails or imports a model module."""
+    from ssds_tpu_torch.export import export_detector
+
+    t0 = time.perf_counter()
+    served_dir = export_detector(det, os.path.join(tmp, "served"))
+    export_s = time.perf_counter() - t0
+    artifact_mb = os.path.getsize(os.path.join(served_dir, "predict.pt2")) / 1e6
+    np.save(os.path.join(tmp, "imgs.npy"), imgs)
+    rows_path = os.path.join(tmp, "rows.npz")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_SERVER, served_dir,
+                           os.path.join(tmp, "imgs.npy"), rows_path, REPO],
+                          capture_output=True, text=True, timeout=600, cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    server_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the export's serving process failed:\n{proc.stderr[-4000:]}")
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    with np.load(rows_path) as f:
+        rows = {int(b): f[b] for b in f.files}
+    bad_modules = [m for m in served["modules"] if m.startswith(("jax", "ssds_tpu.")) or m in (
+        "ssds_tpu", "ssds_tpu_torch.config", "ssds_tpu_torch.detector", "ssds_tpu_torch.quant")
+        or m.startswith("ssds_tpu_torch.models")]
+    if bad_modules or served["meta"]["batch"] != "symbolic":
+        raise AssertionError(f"the serving process imported {bad_modules}, meta {served['meta']}")
+    return served, rows, export_s, artifact_mb, server_s
 
 
 def check_export(seed, dev, card, log):
@@ -952,11 +1031,9 @@ def check_export(seed, dev, card, log):
     identical to the in-process detector's unpruned rows; the program's
     batch-1 latency and batch-32 img/s beside the in-process ones."""
     import dataclasses
-    import subprocess
 
     from ssds_tpu_torch.config import default_config
     from ssds_tpu_torch.detector import ObjectDetector, Predict
-    from ssds_tpu_torch.export import export_detector
     from ssds_tpu_torch.ops.nms import nms_mask_torch
 
     t_phase = time.perf_counter()
@@ -970,30 +1047,10 @@ def check_export(seed, dev, card, log):
     imgs = np.random.default_rng(seed).integers(
         0, 256, (max(EXPORT_BATCHES), *det.img_hw, 3), dtype=np.uint8)
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        served_dir = export_detector(det, os.path.join(tmp, "served"))
-        out["export_s"] = time.perf_counter() - t0
-        out["artifact_mb"] = os.path.getsize(os.path.join(served_dir, "predict.pt2")) / 1e6
-        np.save(os.path.join(tmp, "imgs.npy"), imgs)
-        rows_path = os.path.join(tmp, "rows.npz")
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-c", EXPORT_SERVER, served_dir,
-                               os.path.join(tmp, "imgs.npy"), rows_path, REPO],
-                              capture_output=True, text=True, timeout=600, cwd=REPO,
-                              env=dict(os.environ, PYTHONPATH=REPO))
-        out["server_s"] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"the export's serving process failed:\n{proc.stderr[-4000:]}")
-        served = json.loads(proc.stdout.strip().splitlines()[-1])
-        with np.load(rows_path) as f:
-            rows = {int(b): f[b] for b in f.files}
-    bad_modules = [m for m in served["modules"] if m.startswith(("jax", "ssds_tpu.")) or m in (
-        "ssds_tpu", "ssds_tpu_torch.config", "ssds_tpu_torch.detector")
-        or m.startswith("ssds_tpu_torch.models")]
+        served, rows, out["export_s"], out["artifact_mb"], out["server_s"] = serve_exported(
+            det, imgs, tmp)
     out["server_modules"] = served["modules"]
     out["nms_launches_export"] = sum(served["launches"].values())
-    if bad_modules or served["meta"]["batch"] != "symbolic":
-        raise AssertionError(f"the serving process imported {bad_modules}, meta {served['meta']}")
     for b in EXPORT_BATCHES:
         with torch.no_grad():
             want = unpruned(torch.from_numpy(imgs[:b]).to(dev)).cpu().numpy()
@@ -1284,6 +1341,312 @@ def check_coco(seed, dev, card, log, nms_mask, nms_mask_torch):
     return out
 
 
+def detector_map(solver, det):
+    """mAP of ``det``'s predict function over ``solver``'s test set, through
+    the Solver's own eval (its loader, its detection gathering, the
+    dataset's VOC eval)."""
+    with mock.patch.object(solver, "make_eval_forward", lambda: torch.no_grad()(det.predictor)):
+        return solver._run_detection_eval(solver.get_loader("test"))
+
+
+def check_int8(seed, dev, card, log, checkpoint):
+    """Phase 14: int8 serving of SSD300-VGG16 (``MODEL.QUANT: int8``);
+    ``checkpoint`` is phase 8's last. Returns the numbers."""
+    import dataclasses
+
+    from ssds_tpu_torch import quant
+    from ssds_tpu_torch.config import default_config
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.detector import ObjectDetector, Predict
+    from ssds_tpu_torch.ops.cuda import int8_conv as cuda_int8
+    from ssds_tpu_torch.ops.cuda.nms import nms_mask
+    from ssds_tpu_torch.solver import Solver
+    from ssds_tpu_torch.tools import int8_bench
+    from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    cfg = default_config()  # SSD300-VGG16, VOC, bf16
+    cfg.MODEL.QUANT = "int8"
+    t0 = time.perf_counter()
+    det = ObjectDetector(cfg, device=dev, seed=seed)  # quantised at construction
+    out["construct_s"] = time.perf_counter() - t0
+    n = out["int8_convs"] = quant.num_quantized(det.model)
+    if n != INT8_CONVS or det.dtype != torch.bfloat16:
+        raise AssertionError(f"SSD300-VGG16 int8: {n} int8 convs, {det.dtype}")
+
+    # -- the kernels against their plain versions at every quantised shape
+    shapes = int8_bench.model_shapes(det.model, det.img_hw, dev) + list(int8_bench.EXTRA_SHAPES)
+    bench = int8_bench.run(shapes, INT8_BATCHES, seed, log)
+    out["bench"] = bench
+    out["shapes"] = len(shapes)
+
+    # -- serving: predict x3 and predict_batch x32 through the int8 kernels
+    rng = np.random.default_rng(seed)
+    hw = det.img_hw
+    singles = [rng.integers(0, 256, (*hw, 3), dtype=np.uint8) for _ in range(3)]
+    batch32 = list(rng.integers(0, 256, (32, *hw, 3), dtype=np.uint8))
+    cuda_int8.quantize_act.launches = cuda_int8.int8_conv.launches = nms_mask.launches = 0
+    served = [det.predict(img, threshold=0.01) for img in singles]
+    served += det.predict_batch(batch32, threshold=0.01)
+    torch.cuda.synchronize()
+    out["launches"] = {"quantize_act": cuda_int8.quantize_act.launches,
+                       "int8_conv": cuda_int8.int8_conv.launches, "nms_mask": nms_mask.launches}
+    if out["launches"]["int8_conv"] != 4 * n or out["launches"]["quantize_act"] != 4 * n \
+            or nms_mask.launches <= 0:
+        raise AssertionError(f"int8 serving launches {out['launches']}: want {4 * n} a kernel")
+    for boxes, labels, scores in served:
+        assert boxes.shape == (len(labels), 4) and np.isfinite(boxes).all()
+        assert np.isfinite(scores).all() and ((labels >= 0) & (labels < 20)).all()
+    log(f"served SSD300-VGG16 int8 ({n} int8 convs, calibrated on 4 random images in "
+        f"{out['construct_s']:.1f} s with the model build): predict x3 and predict_batch x32, "
+        f"kernel launches {out['launches']}")
+
+    # -- the float32 int8 forward on the card against the CPU (the same quantised state)
+    cfg32 = default_config()
+    cfg32.MODEL.update(QUANT="int8", HALF_PRECISION=False)
+    x = torch.from_numpy(np.stack(singles[:2]))
+    with torch.no_grad():
+        det32 = ObjectDetector(cfg32, device=dev, seed=seed)
+        gpu = [a.cpu() for a in det32.forward(x.to(dev))]
+        cpu_model = copy.deepcopy(det32.model).cpu()
+        del det32
+        cpu = Predict(cpu_model, torch.tensor(cfg32.DATASET.PIXEL_MEANS, dtype=torch.float32),
+                      None, None, torch.float32).raw(x)
+    for name, g, c in zip(("loc", "conf"), gpu, cpu):
+        err, scale = (g - c).abs().max().item(), c.abs().max().item()
+        out[f"f32_{name}_max_abs_err"], out[f"f32_{name}_max_abs"] = err, scale
+        if not err <= INT8_F32_TOL * scale:
+            raise AssertionError(f"int8 float32 forward card vs CPU: {name} max |d| {err} > "
+                                 f"{INT8_F32_TOL} x {scale}")
+    log(f"SSD300-VGG16 int8 float32 forward, card vs CPU on the same quantised state: loc max|d| "
+        f"{out['f32_loc_max_abs_err']:.3e} (max|loc| {out['f32_loc_max_abs']:.3e}), conf max|d| "
+        f"{out['f32_conf_max_abs_err']:.3e}; bar {INT8_F32_TOL} of the largest")
+
+    # -- accuracy: int8 against float mAP on phase 8's checkpoint and test set
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
+        root, exp = os.path.join(tmp, "VOCdevkit"), os.path.join(tmp, "exp")
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
+        tcfg = training_config(root, exp)
+        tcfg.RESUME_CHECKPOINT = checkpoint
+        solver = Solver(tcfg, device=dev, writer=ScalarWriter(), seed=seed)
+        try:
+            fdet = ObjectDetector(tcfg, device=dev)
+            qcfg = copy.deepcopy(tcfg)
+            qcfg.MODEL.QUANT = "int8"
+            qdet = ObjectDetector(qcfg, device=dev)
+            out["float_map"] = detector_map(solver, fdet)
+            out["int8_map"] = detector_map(solver, qdet)
+            imgs = solver._upload(next(iter(solver.get_loader("test"))), ("images",))["images"]
+            with torch.no_grad():
+                out["conf_max_abs_diff_test"] = (fdet.forward(imgs)[1] - qdet.forward(imgs)[1]
+                                                 ).abs().max().item()
+        finally:
+            solver.close()
+    log(f"phase 8's checkpoint on the synthetic VOC test set ({TEST_IMAGES} images): float "
+        f"(bf16) mAP {out['float_map']:.4f}, int8 mAP {out['int8_map']:.4f}; max |d conf| "
+        f"{out['conf_max_abs_diff_test']:.3e} on a test batch")
+    if not (0.0 <= out["int8_map"] <= 1.0 and out["int8_map"] >= out["float_map"] - MAP_DROP):
+        raise AssertionError(f"int8 mAP {out['int8_map']} more than {MAP_DROP} below float "
+                             f"{out['float_map']}")
+
+    # -- times: int8 beside bf16 (the same seeded weights)
+    bf16 = ObjectDetector(default_config(), device=dev, seed=seed)
+    for name, d in (("int8", det), ("bf16", bf16)):
+        lat, ips = serve_times(d, singles[0], batch32)
+        out[f"{name}_b1_p50_ms"] = float(np.percentile(lat, 50)) * 1e3
+        out[f"{name}_b1_p90_ms"] = float(np.percentile(lat, 90)) * 1e3
+        out[f"{name}_batch32_img_s"] = ips
+    del bf16
+    log(f"serving SSD300-VGG16: int8 batch-1 predict p50 {out['int8_b1_p50_ms']:.3f} ms (p90 "
+        f"{out['int8_b1_p90_ms']:.3f}), batch-32 predict_batch {out['int8_batch32_img_s']:.1f} "
+        f"img/s; bf16 p50 {out['bf16_b1_p50_ms']:.3f} ms (p90 {out['bf16_b1_p90_ms']:.3f}), "
+        f"{out['bf16_batch32_img_s']:.1f} img/s ({card})")
+
+    # -- the exported int8 program, served by a fresh process
+    unpruned = Predict(det.model, det.means, det.priors,
+                       dataclasses.replace(det.post, pre_nms_top_n=0), det.dtype)
+    imgs = np.random.default_rng(seed + 1).integers(
+        0, 256, (max(EXPORT_BATCHES), *det.img_hw, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        served_x, rows, out["export_s"], out["artifact_mb"], _ = serve_exported(det, imgs, tmp)
+    for b in EXPORT_BATCHES:
+        with torch.no_grad():
+            want = unpruned(torch.from_numpy(imgs[:b]).to(dev)).cpu().numpy()
+        if served_x["int8_launches"][str(b)] != [n, n] or served_x["launches"][str(b)] != 1:
+            raise AssertionError(f"the exported int8 program at batch {b} launched "
+                                 f"{served_x['int8_launches'][str(b)]} int8 and "
+                                 f"{served_x['launches'][str(b)]} NMS kernels")
+        if not np.array_equal(rows[b], want):
+            raise AssertionError(f"exported int8 rows at batch {b} != the in-process rows")
+    out["export_b1_p50_ms"] = float(np.percentile(served_x["lat"], 50)) * 1e3
+    out["export_batch32_img_s"] = served_x["img_s"]
+    out["export_int8_launches"] = served_x["int8_launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"exported SSD300-VGG16 int8 ({out['artifact_mb']:.1f} MB) served by a fresh process at "
+        f"batches {list(EXPORT_BATCHES)}: int8 kernel launches {served_x['int8_launches']}, rows "
+        f"identical to the in-process rows; batch-1 p50 {out['export_b1_p50_ms']:.3f} ms, batch "
+        f"32 {out['export_batch32_img_s']:.1f} img/s; phase 14 {out['phase_s']:.1f} s ({card})")
+    return out
+
+
+def aug_stats(images, boxes, valid, valid_before):
+    """Box survival, centre spread of the survivors, pixel mean and std (the
+    drift test's statistics) of an augmented batch (mean-subtracted NHWC)."""
+    centers = ((boxes[..., 0:2] + boxes[..., 2:4]) / 2)[valid]
+    return {"survival": float(valid.sum() / max(1, valid_before.sum())),
+            "center_spread": float(centers.std()), "pixel_mean": float(images.mean()),
+            "pixel_std": float(images.std())}
+
+
+def check_device_aug(seed, dev, card, log, native_img_s):
+    """Phase 15: SSDLite-MobileNetV2-300 on the synthetic COCO at ``PROB 0.6``
+    with ``DATASET.DEVICE_AUG``, cut as phase 10 (no eval); ``native_img_s``
+    is phase 10's loader with the native sampler. Returns the numbers."""
+    from ssds_tpu_torch.checkpoint import load_state_dict_file
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.ops import augment_device
+    from ssds_tpu_torch.solver import Solver, aug_seed, build_train_step
+    from ssds_tpu_torch.tools import time_cuda
+    from ssds_tpu_torch.tools.synth_coco import in_memory_coco, write_coco
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "loader_img_s_native": native_img_s}
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(factory.dataset_map, {"coco": in_memory_coco(seed)}):
+        root, exp = os.path.join(tmp, "coco"), os.path.join(tmp, "exp")
+        write_coco(root, seed, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES)
+        cfg = coco_config(root, exp)
+        cfg.DATASET.DEVICE_AUG = True
+        cfg.TRAIN.CHECKPOINTS_EPOCHS = 1
+        cfg.PHASE = ["train"]
+        prob = float(cfg.DATASET.PROB)
+        out["loader_img_s_resize_only"], workers = loader_img_s(cfg, native_sampler=True)
+
+        sample = augment_device.sample_params
+
+        def recorder(into):
+            def record(generator, boxes, valid, p):
+                into.append(sample(generator, boxes, valid, p))
+                return into[-1]
+            return record
+
+        draws = []
+        writer = ScalarWriter()
+        solver = Solver(cfg, device=dev, writer=writer, seed=seed)
+        resumed = None
+        try:
+            if solver.get_loader("train").dataset.preproc.p != -1:
+                raise AssertionError("DEVICE_AUG: the train loader still augments on the host")
+            t0 = time.perf_counter()
+            with mock.patch.object(augment_device, "sample_params", recorder(draws)):
+                solver.train_model()
+            torch.cuda.synchronize()
+            out["train_model_s"] = time.perf_counter() - t0
+            out["epoch_loss"] = [l + c for (_, l), (_, c) in zip(writer.scalars["loss_loc"],
+                                                                 writer.scalars["loss_conf"])]
+            out["steps"] = solver.step
+            if not all(np.isfinite(v) for vals in writer.scalars.values() for _, v in vals):
+                raise AssertionError(f"a loss is not finite: {writer.scalars}")
+            if len(draws) != solver.step or not out["epoch_loss"][-1] < out["epoch_loss"][0]:
+                raise AssertionError(f"{len(draws)} augmentations for {solver.step} steps; "
+                                     f"epoch losses {out['epoch_loss']}")
+            log(f"trained SSDLite-MobileNetV2-300 COCO bf16 batch {cfg.TRAIN.BATCH_SIZE} with "
+                f"DEVICE_AUG at PROB {prob}: {solver.step} steps in {out['train_model_s']:.1f} s, "
+                f"an augmentation each; epoch mean loss {[round(v, 4) for v in out['epoch_loss']]}")
+
+            # -- resume at the last epoch but one: the same weights and the same draws
+            per_epoch = solver.step // COCO_EPOCHS
+            last = os.path.join(exp, f"{cfg.CHECKPOINTS_PREFIX}_epoch_{COCO_EPOCHS}.pth")
+            os.remove(last)
+            resumed = Solver(cfg, device=dev, writer=ScalarWriter(), seed=seed + 1)
+            again = []
+            with mock.patch.object(augment_device, "sample_params", recorder(again)):
+                resumed.restore()
+                start = {k: v.clone() for k, v in resumed.model.state_dict().items()}
+                resumed.train_model()
+            saved = load_state_dict_file(os.path.join(
+                exp, f"{cfg.CHECKPOINTS_PREFIX}_epoch_{COCO_EPOCHS - 1}.pth"))
+            same_start = all(torch.equal(start[k].cpu(), v.cpu()) for k, v in saved.items())
+            same_draws = len(again) == per_epoch and all(
+                all(torch.equal(a, b) for a, b in zip(x, y))
+                for x, y in zip(draws[-per_epoch:], again))
+            out["resume_equal"] = bool(same_start and same_draws)
+            if not out["resume_equal"]:
+                raise AssertionError(f"resume: start state equal {same_start}, draws equal "
+                                     f"{same_draws} ({len(again)} of {per_epoch})")
+            log(f"resumed at epoch {COCO_EPOCHS - 1}: the saved weights and running statistics, "
+                f"and the {per_epoch} steps' augmentation draws identical to the unbroken run's")
+
+            # -- times: the step with and without the augmentation, the augmentation alone
+            host = next(iter(solver.get_loader("train")))
+            out["train_step_ms"] = train_step_ms(solver)
+            plain = build_train_step(solver.model, solver.priors, solver.optimizer,
+                                     solver.lr_schedule, solver.compute_dtype,
+                                     cfg.DATASET.PIXEL_MEANS)
+            with mock.patch.object(solver, "_train_step", plain):
+                out["train_step_no_aug_ms"] = train_step_ms(solver)
+            batch = solver._upload(host)
+            x = batch["images"].float() - solver.means
+            gen = torch.Generator(device=dev)
+
+            def augment():
+                gen.manual_seed(aug_seed(0))
+                return augment_device.augment_batch(gen, x, batch["boxes"], batch["valid"], prob,
+                                                    solver.means)
+
+            out["augment_ms"] = time_cuda(augment, 20)
+        finally:
+            solver.close()
+            if resumed is not None:
+                resumed.close()
+
+        # -- the distribution against the host recipe on the same images
+        plain_set = factory.load_data(cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE).dataset
+        host_cfg = copy.deepcopy(cfg)
+        host_cfg.DATASET.DEVICE_AUG = False
+        host_set = factory.load_data(host_cfg.DATASET, "train", cfg.MODEL.IMAGE_SIZE).dataset
+        idx = list(range(AUG_STAT_IMAGES))
+        max_gt = int(cfg.DATASET.MAX_GT)
+        means = np.asarray(cfg.DATASET.PIXEL_MEANS, np.float32)
+        resized = factory.detection_collate([plain_set[i] for i in idx], max_gt)
+        import random
+        random.seed(seed)
+        np.random.seed(seed)
+        host = factory.detection_collate([host_set[i] for i in idx], max_gt)
+        gen = torch.Generator(device=dev).manual_seed(aug_seed(seed))
+        img, bx, vd = augment_device.augment_batch(
+            gen, torch.from_numpy(resized["images"]).to(dev).float() - torch.from_numpy(means).to(dev),
+            torch.from_numpy(resized["boxes"]).to(dev), torch.from_numpy(resized["valid"]).to(dev),
+            prob, tuple(cfg.DATASET.PIXEL_MEANS))
+        out["stats_device"] = aug_stats(img.cpu().numpy(), bx.cpu().numpy(), vd.cpu().numpy(),
+                                        resized["valid"])
+        out["stats_host"] = aug_stats(host["images"].astype(np.float32) - means, host["boxes"],
+                                      host["valid"], resized["valid"])
+    d, h = out["stats_device"], out["stats_host"]
+    within = (abs(d["survival"] - h["survival"]) < 0.2 and d["survival"] > 0.5
+              and abs(d["center_spread"] - h["center_spread"])
+              / max(d["center_spread"], h["center_spread"]) < 0.35
+              and abs(d["pixel_mean"] - h["pixel_mean"]) < 25.0
+              and abs(d["pixel_std"] - h["pixel_std"]) / max(d["pixel_std"], h["pixel_std"]) < 0.25)
+    out["stats_within_bounds"] = within
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"SSDLite-MobileNetV2-300 COCO DEVICE_AUG: train loader (resize only, {workers} workers) "
+        f"{out['loader_img_s_resize_only']:.1f} img/s against phase 10's native sampler "
+        f"{native_img_s:.1f} img/s; train step batch {cfg.TRAIN.BATCH_SIZE} (upload included) "
+        f"{out['train_step_ms']:.3f} ms with the augmentation, {out['train_step_no_aug_ms']:.3f} "
+        f"ms without; augment_batch alone {out['augment_ms']:.3f} ms (device); {AUG_STAT_IMAGES} "
+        f"images, device / host recipe: survival {d['survival']:.3f} / {h['survival']:.3f}, "
+        f"centre spread {d['center_spread']:.3f} / {h['center_spread']:.3f}, pixel mean "
+        f"{d['pixel_mean']:.1f} / {h['pixel_mean']:.1f}, std {d['pixel_std']:.1f} / "
+        f"{h['pixel_std']:.1f} (tests/test_augment_drift.py's bounds); phase 15 "
+        f"{out['phase_s']:.1f} s ({card})")
+    if not within:
+        raise AssertionError(f"device augmentation statistics outside the drift bounds: {out}")
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="weights, images and NMS sets")
@@ -1430,7 +1793,8 @@ def main(argv=None):
                   stencil_launches_main_path=stencil_launches)
 
     # -- 8. the training path -------------------------------------------------
-    training = check_training(args.seed, dev, card, log)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 8's checkpoint, for phase 14
+    training = check_training(args.seed, dev, card, log, keep_dir=keep)
     report["training"] = training
 
     # -- 9. SSDLite-MobileNetV2-300: train, resume, deploy, serve ---------------
@@ -1452,6 +1816,17 @@ def main(argv=None):
     # -- 13. SSD300-ResNet50, SSD512-VGG16 and the serving export ----------------
     zoo = check_zoo(args.seed, dev, card, log)
     report["zoo"] = zoo
+
+    # -- 14. int8 serving of SSD300-VGG16 (MODEL.QUANT) --------------------------
+    try:
+        int8 = check_int8(args.seed, dev, card, log, training["checkpoint"])
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    report["int8"] = int8
+
+    # -- 15. SSDLite-MobileNetV2-300 COCO with DATASET.DEVICE_AUG -----------------
+    device_aug = check_device_aug(args.seed, dev, card, log, coco["loader_img_s_native"])
+    report["device_aug"] = device_aug
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -1502,6 +1877,20 @@ def main(argv=None):
         "export_b1_p50_ms", "export_b1_p90_ms", "export_batch32_img_s", "inprocess_b1_p50_ms",
         "inprocess_batch32_img_s", "predict_b1_p50_ms", "predict_batch32_img_s", "phase_s",
         "card")}}))
+    log(json.dumps({"int8": {k: int8[k] for k in (
+        "int8_convs", "shapes", "launches", "f32_loc_max_abs_err", "f32_loc_max_abs",
+        "f32_conf_max_abs_err", "float_map", "int8_map", "conf_max_abs_diff_test",
+        "int8_b1_p50_ms", "int8_b1_p90_ms", "int8_batch32_img_s", "bf16_b1_p50_ms",
+        "bf16_b1_p90_ms", "bf16_batch32_img_s", "export_int8_launches", "export_b1_p50_ms",
+        "export_batch32_img_s", "construct_s", "phase_s", "card")}}))
+    log(json.dumps({"device_aug": {k: device_aug[k] for k in (
+        "epoch_loss", "steps", "resume_equal", "loader_img_s_resize_only", "loader_img_s_native",
+        "train_step_ms", "train_step_no_aug_ms", "augment_ms", "stats_device", "stats_host",
+        "stats_within_bounds", "train_model_s", "phase_s", "card")}}))
+    i8b = int8["bench"]["sums"][f"b{INT8_BATCHES[-1]}"]
+    int8_shape = (f"SSD300-VGG16's {int8['int8_convs']} int8 convs and "
+                  f"{int8['shapes'] - int8['int8_convs']} MobileNetV2 / DarkNet-53 shapes, "
+                  f"batch {INT8_BATCHES[-1]}, summed")
     head_paths = {}
     for head, h in heads.items():
         head_paths[f"{head}_vgg16_serve"] = h["nms_launches_serve"]
@@ -1566,6 +1955,22 @@ def main(argv=None):
                           "library_ms": probes["probes"][slowest]["library_ms"],
                           "bound_ms": probes["probes"][slowest]["bound_ms"],
                           "shape": probes["probes"][slowest]["shape"]},
+    }, {
+        "name": "int8_conv", "route": "cuda", "source": "ssds_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "ssds_tpu/quant.py:70 (int8_conv, compiled by XLA; no pallas_call)",
+        "launches": int8["launches"]["int8_conv"], "max_abs_err": int8["bench"]["max_abs_err"],
+        "ms": i8b["kernel_ms"], "plain_ms": i8b["plain_ms"], "bound_ms": i8b["bound_ms"],
+        "bound_by": i8b["bound_by"],
+        "library_ms": None, "cudnn_bf16_ms": i8b["cudnn_bf16_ms"], "shape": int8_shape,
+        "launches_export": sum(v[1] for v in int8["export_int8_launches"].values()),
+    }, {
+        "name": "quantize_act", "route": "cuda", "source": "ssds_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "ssds_tpu/quant.py:64 (quantize_act, compiled by XLA; no pallas_call)",
+        "launches": int8["launches"]["quantize_act"], "max_abs_err": int8["bench"]["max_abs_err"],
+        "ms": i8b["quantize_ms"], "plain_ms": i8b["plain_quantize_ms"],
+        "bound_ms": i8b["quantize_bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "shape": int8_shape,
+        "launches_export": sum(v[0] for v in int8["export_int8_launches"].values()),
     }]}))
     log(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -12,9 +12,12 @@ dense ``[B, C, max_det, 5]`` detections of :class:`ObjectDetector`; and
 the conv-prototype tools (:mod:`ssds_tpu_torch.tools`), whose 3x3 stem conv
 and probe stencils are hand-written CUDA kernels
 (:mod:`ssds_tpu_torch.ops.cuda.conv`, :mod:`ssds_tpu_torch.ops.cuda.stencil`).
-Then the training path, every backbone and head of the zoo, and the
-serving export (:mod:`ssds_tpu_torch.export`: a ``torch.export`` program
-that reloads with torch and the NMS operator's registration alone).
+Then the training path, every backbone and head of the zoo, the serving
+export (:mod:`ssds_tpu_torch.export`: a ``torch.export`` program that
+reloads with torch and the operators' registrations alone), augmentation on
+the device (:mod:`ssds_tpu_torch.ops.augment_device`) and int8 serving
+(:mod:`ssds_tpu_torch.quant`, whose convs are hand-written CUDA kernels,
+:mod:`ssds_tpu_torch.ops.cuda.int8_conv`).
 """
 
 __version__ = "0.1.0"

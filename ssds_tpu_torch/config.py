@@ -2,8 +2,9 @@
 
 Counterpart of :mod:`ssds_tpu.config`. The default tree is the same, so
 every ``experiments/cfgs/*.yml`` merges into it unchanged; keys only the
-JAX package reads (``TPU.*``, ``MODEL.S2D_STEM``, ``MODEL.QUANT``) are kept
-so that a config file is valid for both packages. ``yaml`` is imported
+JAX package reads (``MODEL.S2D_STEM`` / ``S2D_STAGES`` and ``TPU.*`` but for
+``TPU.COMPUTE_DTYPE`` and ``TPU.DEBUG_NANS``, which the port's Solver reads)
+are kept so that a config file is valid for both packages. ``yaml`` is imported
 inside :func:`cfg_from_file` / :func:`cfg_from_list` only: a machine without
 PyYAML can still build the default config and serve.
 """
@@ -50,7 +51,7 @@ def default_config() -> AttrDict:
             ASPECT_RATIOS=[[2], [2, 3], [2, 3], [2, 3], [2], [2]],
             CLIP=True,
             HALF_PRECISION=True,  # bf16 forward; softmax/decode/detect in f32
-            QUANT="",  # JAX-only: int8 serving is not ported yet
+            QUANT="",  # "int8": ObjectDetector quantises at construction (quant.py)
             ANCHORS=[],
         ),
         TRAIN=_ad(
@@ -104,7 +105,7 @@ def default_config() -> AttrDict:
             MAX_GT=64,
             DEVICE_AUG=False,
         ),
-        TPU=_ad(  # JAX-only subtree, kept so config files stay valid
+        TPU=_ad(  # JAX-only but for COMPUTE_DTYPE and DEBUG_NANS (the port's Solver)
             MESH=_ad(DATA=-1, SPATIAL=1),
             COMPUTE_DTYPE="bfloat16",
             DONATE=True,

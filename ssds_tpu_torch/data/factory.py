@@ -226,8 +226,9 @@ class DetectionLoader:
 def load_data(dataset_cfg, phase: str, image_size=None, batch_size: int = 32) -> DetectionLoader:
     """The phase's loader (reference ``load_data(cfg.DATASET, phase)``).
 
-    ``phase``: 'train' (TRAIN_SETS, augmentation PROB) or 'eval' / 'test'
-    (TEST_SETS, PROB = -1).
+    ``phase``: 'train' (TRAIN_SETS, augmentation PROB; resize only with
+    ``DEVICE_AUG``, whose augmentation the train step runs) or 'eval' /
+    'test' (TEST_SETS, PROB = -1).
     """
     name = dataset_cfg.DATASET
     if name not in dataset_map:
@@ -235,9 +236,9 @@ def load_data(dataset_cfg, phase: str, image_size=None, batch_size: int = 32) ->
     image_size = image_size or [300, 300]
     means = tuple(dataset_cfg.PIXEL_MEANS)
     if phase == "train":
-        if bool(dataset_cfg.get("DEVICE_AUG", False)):
-            raise NotImplementedError("DATASET.DEVICE_AUG: device augmentation is not ported")
         sets, prob, shuffle, drop_last = dataset_cfg.TRAIN_SETS, dataset_cfg.PROB, True, True
+        if bool(dataset_cfg.get("DEVICE_AUG", False)):
+            prob = -1  # the host only resizes; the train step augments on the device
     elif phase in ("eval", "test"):
         sets, prob, shuffle, drop_last = dataset_cfg.TEST_SETS, -1, False, False
     else:

@@ -17,6 +17,10 @@ module, :class:`Predict`, which :mod:`ssds_tpu_torch.export` exports as is.
 An image that is not at the model's input size is resized on the host by
 :func:`ssds_tpu_torch.data.image_ops.resize_linear`, numpy bit-equal to the
 bilinear resize the JAX detector calls, so serving needs no OpenCV.
+
+``MODEL.QUANT: int8`` quantises the model at construction
+(:meth:`ObjectDetector.quantize_int8`, :mod:`ssds_tpu_torch.quant`): its
+convs then run as the int8 kernels of ``csrc/int8_conv.cu`` on the card.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from ssds_tpu_torch import quant
 from ssds_tpu_torch.checkpoint import load_state_dict_file
 from ssds_tpu_torch.data.image_ops import resize_linear
 from ssds_tpu_torch.models.builder import create_model, create_priors, init_model, is_yolo
@@ -98,6 +103,12 @@ class ObjectDetector:
         self.model = init_model(model, seed=seed, device="cpu")
         if cfg.RESUME_CHECKPOINT:
             self.model.load_state_dict(load_state_dict_file(cfg.RESUME_CHECKPOINT), strict=True)
+        # the float32 conv weights and biases, which int8 quantisation reads
+        # (JAX quantises its float32 parameters), kept on the host where the
+        # model will hold them in another dtype
+        self._float_convs = {} if self.dtype == torch.float32 else {
+            name: (m.weight.detach(), None if m.bias is None else m.bias.detach())
+            for name, m in self.model.named_modules() if isinstance(m, torch.nn.Conv2d)}
         self.model.to(self.device)
         # flax casts conv params to the compute dtype per call; cast once here.
         # L2Norm keeps its float32 scale (it computes in float32). So does
@@ -118,6 +129,29 @@ class ObjectDetector:
                                   device=self.device)
         self.post = PostProcessConfig.from_cfg(cfg.POST_PROCESS)
         self.predictor = Predict(self.model, self.means, self.priors, self.post, self.dtype)
+        if str(model_cfg.get("QUANT", "")) == "int8":
+            self.quantize_int8()
+
+    def quantize_int8(self, calib_images=None, skip_re=None) -> int:
+        """Post-training int8 quantisation of the serving path, in place
+        (``ssds_tpu/detector.py:116-153``): calibrate each conv's activation
+        scale on a few forwards in the detector's dtype, quantise the float32
+        weights per output channel, and swap the convs for
+        :class:`ssds_tpu_torch.quant.QuantConv2d`.
+
+        calib_images: ``[B, H, W, 3]`` uint8 batches at the model's size;
+        None gives JAX's four seeded random images. skip_re: a regex over
+        the port's module names (``"loc|conf"``); matching convs stay float.
+        Returns the number of int8 convs."""
+        h, w = self.img_hw
+        if calib_images is None:
+            rng = np.random.default_rng(0)
+            calib_images = [rng.integers(0, 256, (1, h, w, 3), dtype=np.uint8) for _ in range(4)]
+        self.model.eval()
+        amax = quant.collect_absmax(self.model, calib_images, lambda b: self.forward(
+            torch.from_numpy(np.ascontiguousarray(b)).to(self.device)))
+        quant.quantize_model(self.model, amax, skip_re, self._float_convs)
+        return quant.num_quantized(self.model)
 
     @torch.no_grad()
     def forward(self, img_u8: torch.Tensor, phase: str = "eval"):

@@ -6,8 +6,9 @@
 the detector's dtype with its bf16 conv weights, decode, the batched NMS
 kernel, the top rows) with ``torch.export.export`` and saves it, weights
 and constants (priors, means) included, as one file. A serving process
-needs only ``torch`` and the NMS operator's registration
-(:mod:`ssds_tpu_torch.ops.cuda.nms`), which :func:`load_exported` imports:
+needs only ``torch`` and the operators' registrations
+(:mod:`ssds_tpu_torch.ops.cuda.nms`, :mod:`ssds_tpu_torch.ops.cuda.int8_conv`),
+which :func:`load_exported` imports:
 none of the model zoo, config system or detector code runs at load time.
 
 Files written to ``<dir>``:
@@ -26,7 +27,11 @@ as the JAX package's artifact does (``ops/postprocess.py::_static_ge``); a
 fixed batch of 4 or more keeps the prune, as eager serving at that batch.
 In the exported program the NMS is the registered operator
 ``ssds_tpu_torch::nms_mask``: on the card it launches ``csrc/nms.cu`` (the
-wrapper's launch count rises there too), on the CPU the plain version.
+wrapper's launch count rises there too), on the CPU the plain version. A
+detector quantised to int8 (``MODEL.QUANT``, ``quantize_int8``) exports the
+same way: its int8 weights and scales are the program's constants and its
+convs the operators ``ssds_tpu_torch::quantize_act`` and ``int8_conv``
+(``csrc/int8_conv.cu`` on the card), which the loader registers too.
 
 Not ported: the JAX package's multi-platform ``platforms=`` argument and
 ``load_exported_sharded`` (ROADMAP.md).
@@ -42,6 +47,7 @@ import os
 
 import torch
 
+import ssds_tpu_torch.ops.cuda.int8_conv  # noqa: F401  (registers the int8 operators)
 import ssds_tpu_torch.ops.cuda.nms  # noqa: F401  (registers ssds_tpu_torch::nms_mask)
 
 _PROGRAM = "predict.pt2"

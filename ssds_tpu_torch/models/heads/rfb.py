@@ -84,7 +84,11 @@ class BasicRFB_a(nn.Module):
     """Four branches with factorised 1x3 / 3x1 convs and dilations 1/3/3/5
     for the stride-8 source (the paper's Fig. 4 right);
     ``ssds_tpu/models/heads/rfb.py:197-240``. Padding is ``d * (k - 1) // 2``
-    on each axis."""
+    on each axis. Its convs stay float under int8 quantisation
+    (``QUANT_FLOAT``): JAX builds them with a bare ``nn.Conv``, which it
+    does not quantise."""
+
+    QUANT_FLOAT = True
 
     def __init__(self, in_channels: int, features: int = NORM_CHANNELS, scale: float = 1.0):
         super().__init__()

@@ -20,8 +20,9 @@ The RFB heads' ``BasicConv`` (conv, BN, optional ReLU as named children
 :func:`no_autocast` opens the float32 region of a head that runs part of its
 work in float32 whatever the compute dtype (FSSD after its fusion BN).
 
-Only the plain float paths are ported; the JAX package's int8 serving and
-space-to-depth stem wait (ROADMAP.md).
+These are the float paths: int8 serving swaps a :class:`Conv` for
+:class:`ssds_tpu_torch.quant.QuantConv2d`; the JAX package's space-to-depth
+stem is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations

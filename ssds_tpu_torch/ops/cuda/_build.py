@@ -42,6 +42,14 @@ class StencilArgs(ctypes.Structure):
                     ("dr", ctypes.c_int * 8), ("dw", ctypes.c_int * 8)]
 
 
+class ConvArgs(ctypes.Structure):
+    """``struct ConvArgs`` of csrc/int8_conv.cu, passed by value."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "b", "h", "w", "cp", "cout", "kh", "kw", "ho", "wo", "sh", "sw", "ph", "pw", "dh", "dw",
+        "relu", "out_kind")]
+
+
 def _sources():
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cu"))
 
@@ -112,6 +120,12 @@ def load() -> ctypes.CDLL:
             lib.ssds_row_stencil.argtypes = [ctypes.c_void_p, ctypes.c_void_p, StencilArgs,
                                              ctypes.c_void_p]
             lib.ssds_row_stencil.restype = ctypes.c_int
+            lib.ssds_quantize_act.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                              ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+                ctypes.c_void_p]
+            lib.ssds_quantize_act.restype = ctypes.c_int
+            lib.ssds_int8_conv.argtypes = [ctypes.c_void_p] * 6 + [ConvArgs, ctypes.c_void_p]
+            lib.ssds_int8_conv.restype = ctypes.c_int
             build_info["path"] = path
             _lib = lib
         return _lib

@@ -20,11 +20,22 @@ device. An eval batch takes one forward for its loss and its detections
 (:func:`detections`: ``detect`` on the priors, or a YOLO head's decoded boxes
 through ``detect_decoded``).
 
+``DATASET.DEVICE_AUG`` runs the augmentation inside the step
+(:mod:`ssds_tpu_torch.ops.augment_device`, after the mean subtraction, in
+float32 and without gradients) while the loader only resizes; its generator
+is re-seeded from ``(17, step)`` at every step, as JAX folds the step into
+``PRNGKey(17)``, so a resumed run draws what an unbroken run would have. The
+step computes in bf16 when ``MODEL.HALF_PRECISION`` is set and
+``TPU.COMPUTE_DTYPE`` is ``bfloat16``, else in float32 (JAX's rule).
+``TPU.DEBUG_NANS`` stops at the first non-finite loss or gradient with a
+``FloatingPointError`` naming the step and the tensor (JAX's
+``jax_debug_nans``); off, the step adds no host synchronisation.
+
 Differences from the JAX solver: one process (no DDP yet); every head is
-ported (SSD, SSDLite, FSSD, RFB, YOLOv2/v3), device augmentation is not; no
-``visualize_epoch``. After a resume the port continues the LR schedule from
-the restored step, as ``ssds_tpu/solver.py:366-367`` intends; the JAX
-optimizer restarts its schedule count at 0 (ROADMAP.md §3).
+ported (SSD, SSDLite, FSSD, RFB, YOLOv2/v3); no ``visualize_epoch``. After
+a resume the port continues the LR schedule from the restored step, as
+``ssds_tpu/solver.py:366-367`` intends; the JAX optimizer restarts its
+schedule count at 0 (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from ssds_tpu_torch import checkpoint as ckpt_lib
 from ssds_tpu_torch.data.factory import load_data
 from ssds_tpu_torch.models.builder import create_model, create_priors, init_model, is_yolo
 from ssds_tpu_torch.models.heads.common import finalize
+from ssds_tpu_torch.ops.augment_device import augment_batch
 from ssds_tpu_torch.ops.losses import multibox_loss
 from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect, detect_decoded
 from ssds_tpu_torch.ops.yolo import yolo_loss, yolo_v2_loss
@@ -271,13 +283,35 @@ def forward_raw(model: torch.nn.Module, images_u8: torch.Tensor, means: torch.Te
                 dtype: torch.dtype):
     """``[B, H, W, 3]`` uint8 BGR -> the ``'train'`` phase's raw outputs
     (``(loc, conf)``, or a YOLO head's per-scale list): the mean subtracted
-    in float32, the model under autocast in ``dtype`` (bf16), or in float32
-    (float64 for a model made ``.double()``)."""
-    x = (images_u8.float() - means).permute(0, 3, 1, 2).contiguous()
+    in float32, then :func:`forward_input`."""
+    return forward_input(model, images_u8.float() - means, dtype)
+
+
+def forward_input(model: torch.nn.Module, x: torch.Tensor, dtype: torch.dtype):
+    """Mean-subtracted float32 ``[B, H, W, 3]`` -> the ``'train'`` phase's raw
+    outputs: NCHW, the model under autocast in ``dtype`` (bf16), or in
+    float32 (float64 for a model made ``.double()``)."""
+    x = x.permute(0, 3, 1, 2).contiguous()
     if dtype in (torch.float32, torch.float64):
         return model(x.to(dtype), phase="train")
-    with torch.autocast(images_u8.device.type, dtype=dtype):
+    with torch.autocast(x.device.type, dtype=dtype):
         return model(x, phase="train")
+
+
+AUG_SEED = 17  # the JAX step's PRNGKey(17), into which it folds the step
+
+
+def aug_seed(step: int) -> int:
+    """The device augmentation generator's seed at ``step``: ``(17, step)``."""
+    return (AUG_SEED << 32) + int(step)
+
+
+def check_finite(step: int, named: Iterable[Tuple[str, torch.Tensor]]) -> None:
+    """``TPU.DEBUG_NANS``: raise ``FloatingPointError`` at the first tensor
+    of ``named`` (losses, then gradients) with a NaN or an infinity."""
+    for name, t in named:
+        if t is not None and not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(f"TPU.DEBUG_NANS: step {step}: {name} is not finite")
 
 
 def detection_loss(model, priors, out, batch, seen_images: float = math.inf):
@@ -310,24 +344,39 @@ def detections(model, priors, out, img_hw, post: PostProcessConfig) -> torch.Ten
 
 
 def build_train_step(model, priors, optimizer, lr_schedule, dtype, pixel_means,
-                     clip: float = 0.0):
+                     clip: float = 0.0, device_aug_prob: float = 0.0, debug_nans: bool = False):
     """The per-iteration body: ``train_step(batch, step) -> {"loss", "loss_l",
     "loss_c"}`` (device scalars), the model in train mode. ``batch`` holds
     ``images`` (uint8 NHWC), ``boxes``, ``labels`` and ``valid`` on the
-    model's device; ``step`` indexes ``lr_schedule`` and counts the images a
-    YOLOv2 loss has seen (``step * batch``). ``priors`` is None for a YOLO
-    model (:func:`detection_loss`)."""
+    model's device; ``step`` indexes ``lr_schedule``, counts the images a
+    YOLOv2 loss has seen (``step * batch``) and seeds the device
+    augmentation. ``priors`` is None for a YOLO model
+    (:func:`detection_loss`). ``device_aug_prob`` > 0 augments the batch on
+    the device with that ``PROB`` (:func:`augment_batch`, the pixel means
+    ``pixel_means``); ``debug_nans`` raises at a non-finite loss or gradient
+    (:func:`check_finite`) before the update."""
     device = next(model.parameters()).device
     means = torch.tensor(tuple(pixel_means), dtype=torch.float32, device=device)
+    aug_gen = torch.Generator(device=device) if device_aug_prob > 0 else None
+    named = list(model.named_parameters())
 
     def train_step(batch, step: int) -> Dict[str, torch.Tensor]:
         model.train()  # BatchNorm on batch statistics, as the JAX step's train=True
-        out = forward_raw(model, batch["images"], means, dtype)
+        x = batch["images"].float() - means
+        if aug_gen is not None:
+            aug_gen.manual_seed(aug_seed(step))
+            x, boxes, valid = augment_batch(aug_gen, x, batch["boxes"], batch["valid"],
+                                            device_aug_prob, means)
+            batch = dict(batch, boxes=boxes, valid=valid)
+        out = forward_input(model, x, dtype)
         loss_l, loss_c = detection_loss(model, priors, out, batch,
                                         seen_images=step * batch["images"].shape[0])
         loss = loss_l + loss_c
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if debug_nans:
+            check_finite(step, [("loss_l", loss_l), ("loss_c", loss_c)]
+                         + [(f"the gradient of {n}", p.grad) for n, p in named])
         apply_gradients(optimizer, lr_schedule(step), clip)
         return {"loss": loss.detach(), "loss_l": loss_l.detach(), "loss_c": loss_c.detach()}
 
@@ -364,7 +413,10 @@ class Solver:
         self.is_yolo = is_yolo(cfg.MODEL)
         self.priors = None if self.is_yolo else torch.from_numpy(
             create_priors(cfg.MODEL, self.feature_maps)).to(self.device)
-        self.compute_dtype = torch.bfloat16 if bool(cfg.MODEL.HALF_PRECISION) else torch.float32
+        # bf16 only when both say so (ssds_tpu/solver.py:306-309)
+        self.compute_dtype = torch.bfloat16 if (
+            bool(cfg.MODEL.HALF_PRECISION) and str(cfg.TPU.COMPUTE_DTYPE) == "bfloat16"
+        ) else torch.float32
         self.means = torch.tensor(tuple(cfg.DATASET.PIXEL_MEANS), dtype=torch.float32,
                                   device=self.device)
         self.post_cfg = PostProcessConfig.from_cfg(cfg.POST_PROCESS)
@@ -438,9 +490,12 @@ class Solver:
     # -- steps ----------------------------------------------------------------
 
     def make_train_step(self):
+        device_aug = bool(self.cfg.DATASET.get("DEVICE_AUG", False))
         return build_train_step(self.model, self.priors, self.optimizer, self.lr_schedule,
                                 self.compute_dtype, self.cfg.DATASET.PIXEL_MEANS,
-                                clip=float(self.cfg.TRAIN.OPTIMIZER.get("CLIP_GRADIENT", 0.0) or 0.0))
+                                clip=float(self.cfg.TRAIN.OPTIMIZER.get("CLIP_GRADIENT", 0.0) or 0.0),
+                                device_aug_prob=float(self.cfg.DATASET.PROB) if device_aug else 0.0,
+                                debug_nans=bool(self.cfg.TPU.get("DEBUG_NANS", False)))
 
     def make_eval_step(self):
         """One forward per batch gives both the eval loss and the detections

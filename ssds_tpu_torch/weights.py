@@ -62,6 +62,17 @@ is a bare conv (VGG) or the first entry of a ``conv_bn``: the backbone's name,
 ``cfg.MODEL.NETS``, decides (``net``); the head's kind, ``cfg.MODEL.SSDS``
 (``ssds``), decides how ``extra_layers_{j}`` maps. :func:`port_name` gives the
 name alone, for code that needs the mapping without the arrays.
+
+Quantised variables (``ssds_tpu.quant.quantize_variables``: int8 kernels in
+``params`` and a ``quant`` collection of scales) cross with
+:func:`quant_state_from_jax`: ``state_dict_from_jax`` carries the tree (the
+int8 kernels as float32 values, the float biases and statistics), and the
+quant state names each int8 conv of the port with its int8 OIHW weight,
+``w_scale`` and ``act_scale``, which :func:`ssds_tpu_torch.quant.load_quantized`
+swaps in. A ``layers.Conv`` or ``ConvBNReLU`` keeps ``act_scale`` /
+``w_scale`` at its own path (its conv is ``<path>/Conv_0``); a fused
+multibox head keeps ``act_scale_src{k}`` / ``w_scale_src{k}`` at the head,
+the latter the concatenation of ``loc{k}``'s and ``conf{k}``'s scales.
 """
 
 from __future__ import annotations
@@ -207,4 +218,40 @@ def state_dict_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None,
         out[name] = torch.from_numpy(np.array(arr, order="C"))  # a copy, writable
         if name.endswith(".running_mean"):
             out[name[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def quant_state_from_jax(variables: Mapping, net: str = "vgg16", ssds: str = "ssd",
+                         feature_layer=None) -> Dict[str, dict]:
+    """The port's quantised state of JAX's quantised ``variables`` (``params``
+    with int8 kernels and the ``quant`` collection): ``{conv name: {"weight":
+    int8 OIHW, "w_scale": float32 [Cout], "act_scale": float32}}``, for
+    :func:`ssds_tpu_torch.quant.load_quantized`. ``net``, ``ssds`` and
+    ``feature_layer`` as for :func:`state_dict_from_jax`."""
+    params = dict(_flatten(variables["params"]))
+    scales = dict(_flatten(variables["quant"]))
+
+    def entry(conv_path: str, w_scale, act_scale):
+        kernel = np.asarray(params[f"{conv_path}/kernel"])
+        if kernel.dtype != np.int8:
+            raise ValueError(f"quant_state_from_jax: {conv_path} has a {kernel.dtype} kernel")
+        return _module_name(conv_path, net, ssds, feature_layer), {
+            "weight": torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1))),
+            "w_scale": torch.from_numpy(np.array(w_scale, np.float32)),
+            "act_scale": np.float32(act_scale)}
+
+    out: Dict[str, dict] = {}
+    for path, act in scales.items():
+        module, _, leaf = path.rpartition("/")
+        prefix = f"{module}/" if module else ""
+        if leaf == "act_scale":
+            name, e = entry(f"{prefix}Conv_0", scales[f"{prefix}w_scale"], act)
+            out[name] = e
+        elif leaf.startswith("act_scale_src"):
+            k = leaf[len("act_scale_src"):]
+            w_scale = np.asarray(scales[f"{prefix}w_scale_src{k}"], np.float32)
+            n_loc = np.asarray(params[f"{prefix}loc{k}/Conv_0/kernel"]).shape[-1]
+            for part, ws in (("loc", w_scale[:n_loc]), ("conf", w_scale[n_loc:])):
+                name, e = entry(f"{prefix}{part}{k}/Conv_0", ws, act)
+                out[name] = e
     return out

@@ -13,6 +13,7 @@ plain version sum float32 products in different orders and round once to
 bf16: within one bf16 ulp (``ssds_tpu_torch.ops.conv.RTOL, ATOL``).
 """
 
+import os
 from unittest import mock
 
 import numpy as np
@@ -790,3 +791,119 @@ def test_export_round_trip_on_the_card(cuda, tmp_path):
         assert cuda_nms.nms_mask.launches == before + 1
         with torch.no_grad():
             assert torch.equal(served, unpruned(x)), b
+
+
+# -- int8 serving: csrc/int8_conv.cu ------------------------------------------
+# The int32 accumulators are exact, so int8_conv and quantize_act are held
+# bit-identical to their plain versions (ssds_tpu_torch/ops/quant.py; the
+# plain conv runs in float64 on the card with cuDNN off, exact for integers).
+
+# odd shapes: Cin 3 (padded to 4), dilation 6, stride 2 with a 7x7 kernel,
+# a 1x3 kernel with per-axis padding, Cout not a multiple of the 64-wide tile
+INT8_ODD_SHAPES = [("cin3", 3, 64, (3, 3), (1, 1), (1, 1), (1, 1), (19, 23), True, True),
+                   ("fc6", 40, 72, (3, 3), (1, 1), (6, 6), (6, 6), (19, 19), True, False),
+                   ("s2", 20, 8, (3, 3), (2, 2), (1, 1), (1, 1), (10, 10), False, False),
+                   ("k7s2", 12, 65, (7, 7), (2, 2), (3, 3), (1, 1), (33, 31), False, True),
+                   ("k1x3", 33, 70, (1, 3), (1, 1), (0, 1), (1, 1), (9, 17), False, False)]
+
+
+@pytest.mark.parametrize("shape", INT8_ODD_SHAPES, ids=lambda s: s[0])
+def test_int8_kernels_bit_identical_to_plain_at_odd_shapes(cuda, shape):
+    from ssds_tpu_torch.tools import int8_bench
+
+    out = int8_bench.run([int8_bench.ConvShape(*shape)], (1, 3), time_it=False, log=lambda *a: 0)
+    assert out["max_abs_err"] == 0.0 and len(out["cases"]) == 2
+
+
+@pytest.fixture(scope="module")
+def int8_ssd300():
+    """SSD300-VGG16 with ``MODEL.QUANT: int8`` on the card (built once)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine: see this file's docstring)")
+    from ssds_tpu_torch.detector import ObjectDetector
+
+    cfg = default_config()
+    cfg.MODEL.QUANT = "int8"
+    return ObjectDetector(cfg, device="cuda")
+
+
+def test_int8_kernels_bit_identical_to_plain_at_every_ssd300_shape(cuda, int8_ssd300):
+    """Phase 14's shape set: every int8 conv of SSD300-VGG16 and the
+    MobileNetV2 / DarkNet-53 shapes, at batches 1 and 32."""
+    from ssds_tpu_torch.tools import int8_bench
+
+    det = int8_ssd300
+    shapes = int8_bench.model_shapes(det.model, det.img_hw, cuda)
+    assert len(shapes) == 35
+    out = int8_bench.run(shapes + list(int8_bench.EXTRA_SHAPES), (1, 32), time_it=False,
+                         log=lambda *a: 0)
+    assert len(out["cases"]) == 2 * (35 + len(int8_bench.EXTRA_SHAPES))
+
+
+def test_int8_serving_launches_the_kernels(cuda, int8_ssd300):
+    from ssds_tpu_torch import quant
+    from ssds_tpu_torch.ops.cuda import int8_conv as cuda_int8
+
+    det = int8_ssd300
+    n = quant.num_quantized(det.model)
+    before = (cuda_int8.quantize_act.launches, cuda_int8.int8_conv.launches)
+    img = np.random.default_rng(0).integers(0, 256, (300, 300, 3), dtype=np.uint8)
+    boxes, labels, scores = det.predict(img, threshold=0.01)
+    torch.cuda.synchronize()
+    assert (cuda_int8.quantize_act.launches - before[0],
+            cuda_int8.int8_conv.launches - before[1]) == (n, n)
+    assert np.isfinite(boxes).all() and np.isfinite(scores).all()
+
+
+def test_exported_int8_program_calls_the_registered_operators(cuda, tmp_path):
+    import dataclasses
+
+    from ssds_tpu_torch import quant
+    from ssds_tpu_torch.detector import ObjectDetector, Predict
+    from ssds_tpu_torch.export import export_detector, load_exported
+    from ssds_tpu_torch.ops.cuda import int8_conv as cuda_int8
+
+    cfg = default_config()
+    cfg.MODEL.update(IMAGE_SIZE=[64, 64], FEATURE_LAYER=[[22, 34, "S"], [512, 1024, 512]],
+                     ASPECT_RATIOS=[[2], [2, 3], [2, 3]], QUANT="int8")
+    det = ObjectDetector(cfg, device=cuda)
+    n = quant.num_quantized(det.model)
+    out = export_detector(det, str(tmp_path / "served"))
+    program = torch.export.load(os.path.join(out, "predict.pt2"))
+    targets = {str(node.target) for node in program.graph.nodes if node.op == "call_function"}
+    assert {"ssds_tpu_torch.quantize_act.default", "ssds_tpu_torch.int8_conv.default"} <= targets
+    predict, _ = load_exported(out)
+    unpruned = Predict(det.model, det.means, det.priors,
+                       dataclasses.replace(det.post, pre_nms_top_n=0), det.dtype)
+    for b in (1, 3):
+        x = torch.from_numpy(np.random.default_rng(b).integers(
+            0, 256, (b, 64, 64, 3), dtype=np.uint8)).to(cuda)
+        before = cuda_int8.int8_conv.launches
+        served = predict(x)
+        torch.cuda.synchronize()
+        assert cuda_int8.int8_conv.launches == before + n
+        with torch.no_grad():
+            assert torch.equal(served, unpruned(x)), b
+
+
+def test_augment_batch_on_the_card_equals_cpu(cuda):
+    """The applier on the card against the CPU under the same draws: within
+    1e-3 (float32 contractions summed in other orders)."""
+    from ssds_tpu_torch.ops import augment_device as ad
+
+    rng = np.random.default_rng(0)
+    b = 16
+    imgs = torch.from_numpy(rng.uniform(-120, 130, (b, 96, 96, 3)).astype(np.float32))
+    xy, wh = rng.uniform(0, 0.6, (b, 6, 2)), rng.uniform(0.1, 0.4, (b, 6, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], -1).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(b, 6)) < 0.7)
+    p = ad.sample_params(torch.Generator().manual_seed(3), boxes, valid, 0.9)
+    want = ad.apply_params(imgs, boxes, valid, p, (104, 117, 123))
+    got = ad.apply_params(imgs.to(cuda), boxes.to(cuda), valid.to(cuda),
+                          ad.AugParams(*(t.to(cuda) for t in p)), (104, 117, 123))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=1e-6)
+    assert torch.equal(got[2].cpu(), want[2])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    out = ad.augment_batch(gen, imgs.to(cuda), boxes.to(cuda), valid.to(cuda), 0.6)
+    assert all(t.device.type == "cuda" for t in out) and torch.isfinite(out[0]).all()

@@ -195,7 +195,8 @@ POST_PROCESS: {NUM_CLASSES: 4, MAX_DETECTIONS: 10}
 def test_cli_exports_and_the_loader_imports_no_model_module(tmp_path):
     """``python -m ssds_tpu_torch.export`` writes a symbolic-batch bf16
     artifact; a fresh process loads it with ``load_exported`` and serves it
-    with only the NMS operator's modules of the port imported."""
+    with only the registered operators' modules of the port imported (the
+    NMS and, for a quantised artifact, the int8 pair)."""
     yml = tmp_path / "tiny.yml"
     yml.write_text(CFG)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
@@ -213,7 +214,8 @@ def test_cli_exports_and_the_loader_imports_no_model_module(tmp_path):
     assert shape == "(2, 4, 10, 5)"
     assert eval(modules) == ["ssds_tpu_torch", "ssds_tpu_torch.export", "ssds_tpu_torch.ops",
                              "ssds_tpu_torch.ops.boxes", "ssds_tpu_torch.ops.cuda",
-                             "ssds_tpu_torch.ops.cuda.nms", "ssds_tpu_torch.ops.nms"]
+                             "ssds_tpu_torch.ops.cuda.int8_conv", "ssds_tpu_torch.ops.cuda.nms",
+                             "ssds_tpu_torch.ops.nms", "ssds_tpu_torch.ops.quant"]
 
 
 def test_nms_op_fake_implementation_and_cpu_kernel():

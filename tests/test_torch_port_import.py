@@ -52,7 +52,10 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.models.heads.fssd_lite", "ssds_tpu_torch.models.heads.rfb",
                    "ssds_tpu_torch.models.heads.rfb_lite", "ssds_tpu_torch.ops.yolo",
                    "ssds_tpu_torch.models.heads.yolo", "ssds_tpu_torch.models.backbones.darknet",
-                   "ssds_tpu_torch.models.backbones.resnet", "ssds_tpu_torch.export"):
+                   "ssds_tpu_torch.models.backbones.resnet", "ssds_tpu_torch.export",
+                   "ssds_tpu_torch.quant", "ssds_tpu_torch.ops.quant",
+                   "ssds_tpu_torch.ops.cuda.int8_conv", "ssds_tpu_torch.ops.augment_device",
+                   "ssds_tpu_torch.tools.int8_bench"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,
