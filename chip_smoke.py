@@ -149,7 +149,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bit-identical to their plain versions at every quantised conv's shape and
    a 3x3 stride-2 and a 1x1 conv of MobileNetV2 and DarkNet-53, at batches 1
    and 32 (``tools.int8_bench``), and timed beside their bounds, the plain
-   versions and cuDNN's bf16 conv; ``predict`` x3 and ``predict_batch`` x32
+   versions, cuDNN's bf16 conv and ``torch._int_mm`` (the same s8 x s8 -> s32
+   GEMM in cuBLASLt, whose accumulators are held equal too);
+   ``predict`` x3 and ``predict_batch`` x32
    with the kernels' launches reset before and read after (35 each a
    forward); the float32 int8 forward on the card against the CPU on the same
    quantised state within 1e-2 of the largest output; the int8 and the float
@@ -1882,7 +1884,8 @@ def main(argv=None):
         "f32_conf_max_abs_err", "float_map", "int8_map", "conf_max_abs_diff_test",
         "int8_b1_p50_ms", "int8_b1_p90_ms", "int8_batch32_img_s", "bf16_b1_p50_ms",
         "bf16_b1_p90_ms", "bf16_batch32_img_s", "export_int8_launches", "export_b1_p50_ms",
-        "export_batch32_img_s", "construct_s", "phase_s", "card")}}))
+        "export_batch32_img_s", "construct_s", "phase_s", "card")},
+        "int8_bench_sums": int8["bench"]["sums"]}))
     log(json.dumps({"device_aug": {k: device_aug[k] for k in (
         "epoch_loss", "steps", "resume_equal", "loader_img_s_resize_only", "loader_img_s_native",
         "train_step_ms", "train_step_no_aug_ms", "augment_ms", "stats_device", "stats_host",
@@ -1961,7 +1964,9 @@ def main(argv=None):
         "launches": int8["launches"]["int8_conv"], "max_abs_err": int8["bench"]["max_abs_err"],
         "ms": i8b["kernel_ms"], "plain_ms": i8b["plain_ms"], "bound_ms": i8b["bound_ms"],
         "bound_by": i8b["bound_by"],
-        "library_ms": None, "cudnn_bf16_ms": i8b["cudnn_bf16_ms"], "shape": int8_shape,
+        "library_ms": i8b["library_ms"], "library": "torch._int_mm (cuBLASLt s8 x s8 -> s32 GEMM "
+        "on the NHWC input or its im2col, the GEMM alone)",
+        "cudnn_bf16_ms": i8b["cudnn_bf16_ms"], "share_of_bound": i8b["share"], "shape": int8_shape,
         "launches_export": sum(v[1] for v in int8["export_int8_launches"].values()),
     }, {
         "name": "quantize_act", "route": "cuda", "source": "ssds_tpu_torch/csrc/int8_conv.cu",
@@ -1969,7 +1974,7 @@ def main(argv=None):
         "launches": int8["launches"]["quantize_act"], "max_abs_err": int8["bench"]["max_abs_err"],
         "ms": i8b["quantize_ms"], "plain_ms": i8b["plain_quantize_ms"],
         "bound_ms": i8b["quantize_bound_ms"], "bound_by": "bytes", "library_ms": None,
-        "shape": int8_shape,
+        "share_of_bound": i8b["quantize_share"], "shape": int8_shape,
         "launches_export": sum(v[0] for v in int8["export_int8_launches"].values()),
     }]}))
     log(card)

@@ -47,7 +47,7 @@ class ConvArgs(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_int) for name in (
         "b", "h", "w", "cp", "cout", "kh", "kw", "ho", "wo", "sh", "sw", "ph", "pw", "dh", "dw",
-        "relu", "out_kind")]
+        "relu", "out_kind", "bn", "vec")]
 
 
 def _sources():
@@ -121,7 +121,7 @@ def load() -> ctypes.CDLL:
                                              ctypes.c_void_p]
             lib.ssds_row_stencil.restype = ctypes.c_int
             lib.ssds_quantize_act.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                                              ctypes.c_void_p] + [ctypes.c_int] * 5 + [
+                                              ctypes.c_void_p] + [ctypes.c_int] * 7 + [
                 ctypes.c_void_p]
             lib.ssds_quantize_act.restype = ctypes.c_int
             lib.ssds_int8_conv.argtypes = [ctypes.c_void_p] * 6 + [ConvArgs, ctypes.c_void_p]

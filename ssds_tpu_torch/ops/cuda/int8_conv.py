@@ -8,6 +8,12 @@ through their plain C entry points. They replace the JAX package's
 ``:80`` ``dequant`` as the epilogue), which XLA compiles there; PyTorch has
 no CUDA int8 convolution. The source says what bounds them and how.
 
+Each launch follows a plan computed here, on the host, from the shapes
+alone (:func:`quantize_plan`, :func:`conv_plan`): tile sizes, copy and store
+widths and the grid. Every conv takes the one ``wgmma`` kernel; no shape is
+routed elsewhere. The C entry points check the plan they are given and
+refuse one they cannot run.
+
 :func:`quantize_act` and :func:`int8_conv` take the plain versions
 (:mod:`ssds_tpu_torch.ops.quant`) for tensors on the CPU, and only then. For
 CUDA tensors they launch the kernel or raise: there is no fallback. Each
@@ -19,7 +25,7 @@ the wrapper; CPU: the plain version; a fake for tracing), which
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -27,6 +33,66 @@ from ssds_tpu_torch.ops.quant import (
     conv_out_size, int8_conv_plain, padded_channels, quantize_act_torch)
 
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+# quantize_act: values a block (csrc/int8_conv.cu kQaTile)
+QA_TILE = 4096
+# int8_conv's wgmma kernel (csrc/int8_conv.cu): output pixels a block (two
+# warpgroups of 64), bytes of K a stage, and the output-channel tiles that
+# are instantiated, each a legal N of wgmma m64nNk32 .s32.s8.s8
+CONV_BM, CONV_BK = 128, 128
+CONV_BN = (16, 32, 64, 96, 128)
+
+
+class QuantizePlan(NamedTuple):
+    """``quantize_act``'s launch: ``ct`` channels x ``pixels`` flattened
+    pixels a block and ``store`` int8 channels a thread's store (``ct`` and
+    ``store`` are passed to the kernel), and the grid (pixel tiles, channel
+    tiles, batch) that follows, as the kernel computes it."""
+    ct: int
+    pixels: int
+    store: int
+    grid: tuple
+
+
+def store_width(cp: int) -> int:
+    """The widest of 16, 8 and 4 bytes that divides ``cp``."""
+    return 16 if cp % 16 == 0 else 8 if cp % 8 == 0 else 4
+
+
+def quantize_plan(b: int, c: int, h: int, w: int) -> QuantizePlan:
+    """The plan of one ``quantize_act`` of an NCHW ``[b, c, h, w]`` input: the
+    channel tile is the padded channel count rounded up to a power of 2,
+    from 4 to 64, and the pixel tile fills the block's :data:`QA_TILE`
+    values, so a narrow map fills every block."""
+    cp = padded_channels(c)
+    ct = 4
+    while ct < min(cp, 64):
+        ct *= 2
+    pixels = QA_TILE // ct
+    return QuantizePlan(ct, pixels, store_width(cp), (-(-h * w // pixels), -(-cp // ct), b))
+
+
+class ConvPlan(NamedTuple):
+    """``int8_conv``'s launch: the output-channel tile ``bn`` (the wgmma N)
+    and the bytes a ``cp.async`` copies (``vec``, dividing Cp), which the
+    kernel is given; and the tiles along M (output pixels), N (output
+    channels) and K (stages of :data:`CONV_BK` bytes) and the grid (blocks)
+    that follow from them, as the kernel computes them."""
+    bn: int
+    vec: int
+    m_tiles: int
+    n_tiles: int
+    k_stages: int
+    grid: int
+
+
+def conv_plan(b: int, ho: int, wo: int, cp: int, cout: int, kh: int, kw: int) -> ConvPlan:
+    """The plan of one ``int8_conv``: the smallest instantiated N tile that
+    holds ``cout``, else the largest; copies as wide as ``cp`` allows."""
+    bn = next((n for n in CONV_BN if n >= cout), CONV_BN[-1])
+    m_tiles, n_tiles = -(-b * ho * wo // CONV_BM), -(-cout // bn)
+    return ConvPlan(bn, store_width(cp), m_tiles, n_tiles, -(-kh * kw * cp // CONV_BK),
+                    m_tiles * n_tiles)
 
 
 def _launch(fn, device: int, *args) -> None:
@@ -54,6 +120,14 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> int:
     return tensors[0].get_device()
 
 
+def _check_aligned16(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels' 16-byte copies need 16-byte aligned base pointers."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: int8 tensors must be 16-byte aligned, got an offset of "
+                             f"{t.data_ptr() % 16} bytes")
+
+
 def _check_scale(name: str, act_scale: torch.Tensor) -> None:
     if act_scale.dtype != torch.float32 or act_scale.numel() != 1:
         raise TypeError(f"{name}: act_scale must be one float32 value, got "
@@ -77,10 +151,11 @@ def quantize_act(x: torch.Tensor, act_scale: torch.Tensor) -> torch.Tensor:
         return out
     from ssds_tpu_torch.ops.cuda import _build
 
+    plan = quantize_plan(b, c, h, w)
     lib = _build.load()
     stream = torch._C._cuda_getCurrentRawStream(device)
     _launch(lib.ssds_quantize_act, device, x.data_ptr(), int(x.dtype == torch.bfloat16),
-            act_scale.data_ptr(), out.data_ptr(), b, c, h, w, cp, stream)
+            act_scale.data_ptr(), out.data_ptr(), b, c, h, w, cp, plan.ct, plan.store, stream)
     quantize_act.launches += 1
     return out
 
@@ -112,6 +187,7 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, act_scale: torch.Tensor,
     if cp != wcp or cp % 4:
         raise ValueError(f"int8_conv: input channels {cp} and weight channels {wcp} must agree "
                          "and be a multiple of 4")
+    _check_aligned16("int8_conv", xq, wq)
     if w_scale.dtype != torch.float32 or w_scale.shape != (cout,):
         raise ValueError(f"int8_conv: w_scale must be float32 [{cout}]")
     if bias is not None and (bias.dtype != torch.float32 or bias.shape != (cout,)):
@@ -125,10 +201,11 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, act_scale: torch.Tensor,
         return out
     from ssds_tpu_torch.ops.cuda import _build
 
+    plan = conv_plan(b, ho, wo, cp, cout, kh, kw)
     lib = _build.load()
     stream = torch._C._cuda_getCurrentRawStream(device)
     args = _build.ConvArgs(b, h, w, cp, cout, kh, kw, ho, wo, *stride, *padding, *dilation,
-                           int(relu), _OUT_KIND[out_dtype])
+                           int(relu), _OUT_KIND[out_dtype], plan.bn, plan.vec)
     _launch(lib.ssds_int8_conv, device, xq.data_ptr(), wq.data_ptr(), act_scale.data_ptr(),
             w_scale.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(), args,
             stream)

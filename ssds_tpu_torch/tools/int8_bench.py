@@ -1,7 +1,7 @@
 """The int8 serving kernels on the card: ``quantize_act`` and ``int8_conv``
 (``csrc/int8_conv.cu``) held bit-identical to their plain versions
 (:mod:`ssds_tpu_torch.ops.quant`) and timed beside their bounds, their plain
-versions and cuDNN's bf16 convolution of the same shape.
+versions, cuDNN's bf16 convolution of the same shape and ``torch._int_mm``.
 
     python -m ssds_tpu_torch.tools.int8_bench [--batches 1,32] [--seed 0] [--out PATH]
 
@@ -11,24 +11,44 @@ over the default config, found by running its quantised model once) plus a
 (:data:`EXTRA_SHAPES`). At each batch and shape: ``quantize_act`` on the
 bf16 and the float32 input and ``int8_conv``'s int32 accumulators and its bf16
 output must equal the plain versions bit for bit (the plain conv runs in
-float64 on the card with cuDNN off, exact for integers). Times are CUDA
-events over back-to-back launches. A conv's bound is the larger of its
-int8 operations at the dense int8 tensor-core peak and its bytes (the int8
-input read once, the weights, the bf16 output written once) at the HBM rate;
-``quantize_act``'s is its bytes; a batch's sums count all the shapes'
-operations and bytes as one piece of work.
+float64 on the card with cuDNN off, exact for integers), and so must the
+yardstick's accumulators. Kernel, cuDNN and ``_int_mm`` times are device
+times: CUDA events over back-to-back launches queued behind a sleep
+(``tools.time_cuda_queued``), so a kernel shorter than its launch is timed
+and not the host's launch rate, the median of three such runs; the plain
+versions' are CUDA events over back-to-back calls. A conv's bound is the
+larger of its int8 operations at the dense int8 tensor-core peak and its
+bytes (the int8 input read once, the weights, the bf16 output written once)
+at the HBM rate; ``quantize_act``'s is its bytes; a batch's sums count all
+the shapes' operations and bytes as one piece of work. Each case records
+its share of the bound (bound / time) and its plan
+(``ops/cuda/int8_conv.py::conv_plan``: the N tile and the copy width; every
+case takes the one ``wgmma`` kernel).
+
+The library yardstick (``library_ms``) is cuBLASLt's ``s8 x s8 -> s32`` GEMM
+through ``torch._int_mm``, timed alone, and only the GEMM: its operands are
+built outside the timed region (:func:`int_mm_operands`). For a 1x1
+stride-1 unpadded conv the A operand is the NHWC input itself, ``[M, Cp]``;
+for the others the input im2col'd to ``[M, KH * KW * Cp]`` in the weights'
+``(ky, kx, c)`` order (:func:`im2col`). It skips the dequant epilogue and,
+for the im2col'd convs, the im2col itself, so it is a lower yardstick than
+the kernel's work. ``_int_mm`` on the card wants more than 16 rows and K and
+N multiples of 8: operands short of that are zero-padded (zero K columns add
+nothing; the extra rows and output columns are computed and dropped). The
+port never calls ``_int_mm``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ssds_tpu_torch.tools import card_line, need_cuda, roofline_ms, time_cuda
+from ssds_tpu_torch.tools import card_line, need_cuda, roofline_ms, time_cuda, time_cuda_queued
 
 INT8_OPS_S = 1979e12  # H100 SXM dense int8 tensor-core peak
 
@@ -112,6 +132,60 @@ def conv_work(shape: ConvShape, batch: int, out_bytes: int = 2):
     return 2.0 * macs, nbytes
 
 
+def im2col(xq: torch.Tensor, kernel: Sequence[int], stride: Sequence[int],
+           padding: Sequence[int], dilation: Sequence[int]) -> torch.Tensor:
+    """NHWC ``xq [B, H, W, Cp]`` -> ``[B * Ho * Wo, KH * KW * Cp]``: each output
+    pixel's receptive field in the weights' ``(ky, kx, c)`` order, zeros
+    outside the image."""
+    from ssds_tpu_torch.ops.quant import conv_out_size
+
+    b, h, w, cp = xq.shape
+    (kh, kw), (sh, sw), (ph, pw), (dh, dw) = kernel, stride, padding, dilation
+    ho, wo = conv_out_size(h, kh, sh, ph, dh), conv_out_size(w, kw, sw, pw, dw)
+    xp = F.pad(xq, (0, 0, pw, pw, ph, ph))
+    taps = [xp[:, ky * dh:ky * dh + (ho - 1) * sh + 1:sh, kx * dw:kx * dw + (wo - 1) * sw + 1:sw]
+            for ky in range(kh) for kx in range(kw)]
+    return torch.stack(taps, dim=3).reshape(b * ho * wo, kh * kw * cp)
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    if t.shape == (rows, cols):
+        return t
+    return F.pad(t, (0, cols - t.shape[1], 0, rows - t.shape[0]))
+
+
+def int_mm_operands(xq: torch.Tensor, wq: torch.Tensor, stride: Sequence[int],
+                    padding: Sequence[int], dilation: Sequence[int]):
+    """``(A [M', K'], B [K', N'])`` int8 for ``torch._int_mm(A, B)``: A the NHWC
+    input viewed ``[M, Cp]`` for a 1x1 stride-1 unpadded conv, else
+    :func:`im2col`; B the ``[Cout, KH, KW, Cp]`` weights as ``[Cout, K]``,
+    transposed (a column-major view). Zero-padded to ``M' > 16`` rows and
+    ``K', N'`` multiples of 8, as ``_int_mm`` on the card requires; the first
+    ``M x Cout`` of the product are the conv's accumulators."""
+    cout, kh, kw, cp = wq.shape
+    if (kh, kw) == (1, 1) and tuple(stride) == (1, 1) and tuple(padding) == (0, 0):
+        a = xq.reshape(-1, cp)
+    else:
+        a = im2col(xq, (kh, kw), stride, padding, dilation)
+    m, k = a.shape
+    rows, depth, cols = max(m, 17), -(-k // 8) * 8, -(-cout // 8) * 8
+    return _pad_to(a, rows, depth), _pad_to(wq.reshape(cout, k), cols, depth).t()
+
+
+def int_mm_acc(xq: torch.Tensor, wq: torch.Tensor, stride: Sequence[int],
+               padding: Sequence[int], dilation: Sequence[int]) -> torch.Tensor:
+    """The conv's NCHW int32 accumulators through ``torch._int_mm`` (the
+    yardstick's function, which must equal ``int8_conv_torch``'s)."""
+    from ssds_tpu_torch.ops.quant import conv_out_size
+
+    b, h, w, _ = xq.shape
+    cout, kh, kw, _ = wq.shape
+    ho = conv_out_size(h, kh, stride[0], padding[0], dilation[0])
+    wo = conv_out_size(w, kw, stride[1], padding[1], dilation[1])
+    acc = torch._int_mm(*int_mm_operands(xq, wq, stride, padding, dilation))
+    return acc[:b * ho * wo, :cout].reshape(b, ho, wo, cout).permute(0, 3, 1, 2).contiguous()
+
+
 def quantize_bytes(shape: ConvShape, batch: int) -> int:
     """``quantize_act``'s bytes: the bf16 input read, the padded int8 written."""
     from ssds_tpu_torch.ops.quant import padded_channels
@@ -120,6 +194,12 @@ def quantize_bytes(shape: ConvShape, batch: int) -> int:
 
 
 ITERS = 10  # timed launches a case (the plain conv: 2)
+REPEATS = 3  # device times are the median of this many runs of ITERS launches
+
+
+def _device_ms(fn) -> float:
+    """Median device milliseconds of ``fn()`` over :data:`REPEATS` queued runs."""
+    return statistics.median(time_cuda_queued(fn, ITERS) for _ in range(REPEATS))
 
 
 def run(shapes: Sequence[ConvShape], batches=(1, 32), seed: int = 0, log=print,
@@ -127,8 +207,9 @@ def run(shapes: Sequence[ConvShape], batches=(1, 32), seed: int = 0, log=print,
     """Check every shape at every batch and, with ``time_it``, time it.
     Returns ``{"cases": {"<name>/b<batch>": {...}}, "max_abs_err": 0.0,
     per-batch sums}``; raises on the first mismatch."""
-    from ssds_tpu_torch.ops.cuda.int8_conv import int8_conv, quantize_act
-    from ssds_tpu_torch.ops.quant import dequant_torch, int8_conv_torch, quantize_act_torch
+    from ssds_tpu_torch.ops.cuda.int8_conv import conv_plan, int8_conv, quantize_act
+    from ssds_tpu_torch.ops.quant import (
+        conv_out_size, dequant_torch, int8_conv_torch, padded_channels, quantize_act_torch)
 
     dev = need_cuda("int8_bench")
     gen = torch.Generator().manual_seed(seed)
@@ -136,7 +217,7 @@ def run(shapes: Sequence[ConvShape], batches=(1, 32), seed: int = 0, log=print,
     cases, sums = {}, {}
     for batch in batches:
         total = {"kernel_ms": 0.0, "quantize_ms": 0.0, "plain_ms": 0.0, "plain_quantize_ms": 0.0,
-                 "cudnn_bf16_ms": 0.0}
+                 "cudnn_bf16_ms": 0.0, "library_ms": 0.0}
         ops = nbytes = qbytes_all = 0.0
         for shape in shapes:
             x, wq, w_scale, bias, act = _operands(shape, batch, gen, dev)
@@ -157,9 +238,19 @@ def run(shapes: Sequence[ConvShape], batches=(1, 32), seed: int = 0, log=print,
             want_y = dequant_torch(want_acc, act, w_scale, bias, shape.relu, torch.bfloat16)
             if not torch.equal(y, want_y):
                 raise AssertionError(f"int8_conv output != plain at {shape.name} batch {batch}")
+            if not torch.equal(int_mm_acc(xq, wq, *args), want_acc):
+                raise AssertionError(f"torch._int_mm accumulators != plain at {shape.name} "
+                                     f"batch {batch}")
+            ho = conv_out_size(shape.hw[0], shape.kernel[0], shape.stride[0], shape.padding[0],
+                               shape.dilation[0])
+            wo = conv_out_size(shape.hw[1], shape.kernel[1], shape.stride[1], shape.padding[1],
+                               shape.dilation[1])
+            plan = conv_plan(batch, ho, wo, padded_channels(shape.cin), shape.cout,
+                             *shape.kernel)
             case = {"shape": [batch, shape.cin, *shape.hw], "cout": shape.cout,
                     "kernel": list(shape.kernel), "stride": list(shape.stride),
-                    "dilation": list(shape.dilation)}
+                    "dilation": list(shape.dilation), "bn": plan.bn,
+                    "vec": plan.vec}
             work = conv_work(shape, batch)
             case["bound_ms"], case["bound_by"] = roofline_ms(*work, INT8_OPS_S)
             qbytes = quantize_bytes(shape, batch)
@@ -169,15 +260,20 @@ def run(shapes: Sequence[ConvShape], batches=(1, 32), seed: int = 0, log=print,
                 wb = (torch.randn((shape.cout, shape.cin, *shape.kernel), generator=gen) * 0.05
                       ).to(dev, torch.bfloat16)
                 bb = None if bias is None else bias.to(torch.bfloat16)
-                case["kernel_ms"] = time_cuda(lambda: int8_conv(
-                    xq, wq, act, w_scale, bias, *args, shape.relu, torch.bfloat16), ITERS)
-                case["quantize_ms"] = time_cuda(lambda: quantize_act(xb, act), ITERS)
+                case["kernel_ms"] = _device_ms(lambda: int8_conv(
+                    xq, wq, act, w_scale, bias, *args, shape.relu, torch.bfloat16))
+                case["quantize_ms"] = _device_ms(lambda: quantize_act(xb, act))
+                mm_a, mm_b = int_mm_operands(xq, wq, *args)
+                case["library_ms"] = _device_ms(lambda: torch._int_mm(mm_a, mm_b))
+                del mm_a, mm_b
                 case["plain_ms"] = time_cuda(lambda: dequant_torch(
                     int8_conv_torch(xq, wq, *args), act, w_scale, bias, shape.relu,
                     torch.bfloat16), 2, warmup=1)
                 case["plain_quantize_ms"] = time_cuda(lambda: quantize_act_torch(xb, act), ITERS)
-                case["cudnn_bf16_ms"] = time_cuda(lambda: F.conv2d(
-                    xb, wb, bb, shape.stride, shape.padding, shape.dilation), ITERS)
+                case["cudnn_bf16_ms"] = _device_ms(lambda: F.conv2d(
+                    xb, wb, bb, shape.stride, shape.padding, shape.dilation))
+                case["share"] = case["bound_ms"] / case["kernel_ms"]
+                case["quantize_share"] = case["quantize_bound_ms"] / case["quantize_ms"]
             for key in total:
                 total[key] += case.get(key, 0.0)
             cases[f"{shape.name}/b{batch}"] = case
@@ -187,10 +283,14 @@ def run(shapes: Sequence[ConvShape], batches=(1, 32), seed: int = 0, log=print,
         total["quantize_bound_ms"], _ = roofline_ms(0.0, qbytes_all)
         sums[f"b{batch}"] = total
         if time_it:
-            log(f"int8 convs at batch {batch} ({len(shapes)} shapes): int8_conv "
-                f"{total['kernel_ms']:.3f} ms + quantize_act {total['quantize_ms']:.3f} ms "
-                f"(bounds {total['bound_ms']:.3f} / {total['quantize_bound_ms']:.4f} ms); plain "
-                f"{total['plain_ms']:.3f} ms; cuDNN bf16 conv {total['cudnn_bf16_ms']:.3f} ms")
+            total["share"] = total["bound_ms"] / total["kernel_ms"]
+            total["quantize_share"] = total["quantize_bound_ms"] / total["quantize_ms"]
+            log(f"int8 convs at batch {batch} ({len(shapes)} shapes): "
+                f"int8_conv {total['kernel_ms']:.3f} ms ({100 * total['share']:.1f} % of its "
+                f"bound {total['bound_ms']:.3f} ms) + quantize_act {total['quantize_ms']:.3f} ms "
+                f"({100 * total['quantize_share']:.1f} % of {total['quantize_bound_ms']:.4f} ms); "
+                f"plain {total['plain_ms']:.3f} ms; cuDNN bf16 conv {total['cudnn_bf16_ms']:.3f} "
+                f"ms; torch._int_mm {total['library_ms']:.3f} ms")
     log(f"int8 kernels bit-identical to their plain versions: {len(shapes)} shapes x batches "
         f"{list(batches)} (quantize_act on bf16 and float32; accumulators and bf16 output)")
     return {"cases": cases, "sums": sums, "max_abs_err": 0.0}
@@ -216,9 +316,12 @@ def main(argv=None):
           f"+ {len(EXTRA_SHAPES)} extra shapes")
     out = run(shapes, tuple(int(b) for b in args.batches.split(",")), args.seed)
     for key, case in out["cases"].items():
-        print(f"{key}: int8_conv {case['kernel_ms']:.4f} ms, cuDNN bf16 {case['cudnn_bf16_ms']:.4f} "
-              f"ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}), plain "
-              f"{case['plain_ms']:.3f} ms; quantize_act {case['quantize_ms']:.4f} ms")
+        print(f"{key}: int8_conv {case['kernel_ms']:.4f} ms (wgmma N {case['bn']}, "
+              f"{case['vec']}-byte copies; {100 * case['share']:.1f} % of its bound "
+              f"{case['bound_ms']:.4f} ms, {case['bound_by']}), cuDNN bf16 "
+              f"{case['cudnn_bf16_ms']:.4f} ms, torch._int_mm {case['library_ms']:.4f} ms, plain "
+              f"{case['plain_ms']:.3f} ms; quantize_act {case['quantize_ms']:.4f} ms "
+              f"({100 * case['quantize_share']:.1f} % of {case['quantize_bound_ms']:.4f} ms)")
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card_line(), **out}, f, indent=1)

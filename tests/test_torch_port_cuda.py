@@ -800,11 +800,23 @@ def test_export_round_trip_on_the_card(cuda, tmp_path):
 
 # odd shapes: Cin 3 (padded to 4), dilation 6, stride 2 with a 7x7 kernel,
 # a 1x3 kernel with per-axis padding, Cout not a multiple of the 64-wide tile
+# the kernels' edges, each run at batches 1 and 3 (M = 3 * Ho * Wo, not a
+# multiple of the 128-pixel M tile): Cp 4 / 20 / 12 / 36 / 44 (4-byte
+# copies) and 24 / 40 (8-byte), Cout filling no N tile (65, 70, 72, SSD's
+# conf 84 and 126 and loc 16 and 24), a 1x1 map, K = 396 (not a multiple of
+# 32), dilation 6, stride 2, a 7x7 and a 1x3 kernel
 INT8_ODD_SHAPES = [("cin3", 3, 64, (3, 3), (1, 1), (1, 1), (1, 1), (19, 23), True, True),
                    ("fc6", 40, 72, (3, 3), (1, 1), (6, 6), (6, 6), (19, 19), True, False),
                    ("s2", 20, 8, (3, 3), (2, 2), (1, 1), (1, 1), (10, 10), False, False),
                    ("k7s2", 12, 65, (7, 7), (2, 2), (3, 3), (1, 1), (33, 31), False, True),
-                   ("k1x3", 33, 70, (1, 3), (1, 1), (0, 1), (1, 1), (9, 17), False, False)]
+                   ("k1x3", 33, 70, (1, 3), (1, 1), (0, 1), (1, 1), (9, 17), False, False),
+                   ("conf84", 64, 84, (3, 3), (1, 1), (1, 1), (1, 1), (5, 5), True, False),
+                   ("conf126", 48, 126, (3, 3), (1, 1), (1, 1), (1, 1), (3, 3), True, False),
+                   ("loc16", 128, 16, (3, 3), (1, 1), (1, 1), (1, 1), (10, 10), True, False),
+                   ("loc24_cp24", 24, 24, (3, 3), (1, 1), (1, 1), (1, 1), (19, 19), True,
+                    False),
+                   ("map1x1", 64, 40, (3, 3), (1, 1), (1, 1), (1, 1), (1, 1), True, True),
+                   ("k396", 44, 40, (3, 3), (1, 1), (1, 1), (1, 1), (13, 11), False, True)]
 
 
 @pytest.mark.parametrize("shape", INT8_ODD_SHAPES, ids=lambda s: s[0])
@@ -813,6 +825,21 @@ def test_int8_kernels_bit_identical_to_plain_at_odd_shapes(cuda, shape):
 
     out = int8_bench.run([int8_bench.ConvShape(*shape)], (1, 3), time_it=False, log=lambda *a: 0)
     assert out["max_abs_err"] == 0.0 and len(out["cases"]) == 2
+
+
+def test_int8_conv_refuses_int8_tensors_off_16_byte_alignment(cuda):
+    """The kernel's 16-byte copies need 16-byte aligned operands: a view four
+    bytes in raises, and nothing is launched."""
+    from ssds_tpu_torch.ops.cuda import int8_conv as cuda_int8
+
+    xq = torch.zeros(1 * 5 * 5 * 16 + 4, dtype=torch.int8, device=cuda)[4:].view(1, 5, 5, 16)
+    wq = torch.zeros((8, 3, 3, 16), dtype=torch.int8, device=cuda)
+    one = torch.ones((), device=cuda)
+    before = cuda_int8.int8_conv.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_int8.int8_conv(xq, wq, one, torch.ones(8, device=cuda), None, (1, 1), (1, 1),
+                            (1, 1), False, torch.float32)
+    assert cuda_int8.int8_conv.launches == before
 
 
 @pytest.fixture(scope="module")
