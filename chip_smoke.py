@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8 and device-augmentation paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8, device-augmentation, data-parallel and observability paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -141,7 +141,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    32, the NMS kernel launched once inside the program at each, its rows
    identical to the in-process detector's unpruned rows (a symbolic batch
    takes no prune); the program's batch-1 p50 and batch-32 img/s beside the
-   in-process predict function's, ``predict``'s and ``predict_batch``'s.
+   in-process predict function's, ``predict``'s and ``predict_batch``'s. The
+   artifact is exported for ``("cuda", "cpu")``: a fresh process moves it to
+   the CPU (``load_exported(dir, device="cpu")``) and its rows at batches 1
+   and 3 are identical to an in-process CPU ``ObjectDetector``'s on the same
+   weights; ``load_exported_sharded`` over every card (two programs on card 0
+   when there is one) gives at batch 32 one program's rows on the same pieces,
+   the NMS kernel launched once a piece (one program's rows on the whole batch
+   against the pieces' are logged: cuDNN may take other algorithms at batch
+   16 than at 32).
 
 14. int8 serving of SSD300-VGG16 (``check_int8``): the default config with
    ``MODEL.QUANT: int8`` (35 int8 convs, calibrated on JAX's four seeded
@@ -169,14 +177,43 @@ Phases, each of which raises on failure (the script then exits non-zero):
    train step with and without the augmentation, and ``augment_batch``
    alone (device ms); box survival, centre spread and pixel mean and std of
    128 train images augmented on the card against the host recipe's on the
-   same images, within ``tests/test_augment_drift.py``'s bounds.
+   same images, within ``tests/test_augment_drift.py``'s bounds;
+16. data-parallel SSDLite-MobileNetV2-300 (``check_ddp``; phase 9's model at
+   full width, the synthetic VOC), its ranks launched by
+   ``torch.distributed.run``: with two or more cards one rank a card on NCCL;
+   with one, 16a on one NCCL rank and 16b-c on two gloo ranks sharing card 0
+   (NCCL refuses two ranks on one card). a. The port's train CLI
+   (``python -m ssds_tpu_torch.tools.synth_voc ... train --cfg <json>``: the
+   train CLI with the images drawn in memory) for one epoch: rc 0 and one
+   manifest line. b. One float64 step (cuDNN float64) at global batch 8,
+   ranks against one rank on the same card (``tests/torch_port_ddp_worker.py``):
+   losses within rtol 1e-6, every update within 1e-5 of the largest, every
+   running statistic within 1e-9, the ranks' states equal. c. The bf16
+   recipe (batch 32 global, SGD, sgdr with warm-up) for 3 epochs with the
+   eval of the last merged over the ranks (``--lifecycle``): every loss
+   finite, every rank the same eval and test mAP, a manifest line an epoch,
+   every BatchNorm's running variance moved and equal on every rank; a
+   1-process ``Solver.test_model`` on the checkpoint within 1e-3 of the
+   merged mAP; the train step and ``test_model``'s img/s on the ranks and on
+   one process;
+17. observability on SSD300-VGG16 (``check_observability``):
+   ``utils.profiler.trace`` around 3 train steps, each under
+   ``annotate("train_step")``, and around a ``predict_batch`` of 32: the
+   Chrome traces hold the spans and the card's kernels, the NMS kernel's
+   among them; ``profiler.timed`` within 10 % of CUDA events over 5 train
+   steps; ``Solver.visualize_epoch`` through a recording writer: the prior
+   images (one a level), 8 samples, each level's feature-map grid and
+   heatmap, and one gradient histogram a parameter.
 
 Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
 ``{"coco": {...}}``, ``{"heads": {"fssd": {...}, "rfb": {...}}}``,
 ``{"yolo": {"yolo_v3": {...}, "yolo_v2": {...}}}``, ``{"zoo": {"resnet50":
-{...}, "ssd512": {...}}}`` and ``{"export": {...}}``, ``{"int8": {...}}`` and ``{"device_aug": {...}}``, then
+{...}, "ssd512": {...}}}`` and ``{"export": {...}}``, ``{"int8": {...}}``,
+``{"device_aug": {...}}``, ``{"ddp": {...}}`` and ``{"observability":
+{...}, "export_moved_sharded": {...}}``, then
 ``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4, 9, 10,
-11, 12 and 13's serving, ``launches_by_path`` every path; ``int8_conv`` and
+11, 12, 13's and 17's serving, ``launches_by_path`` every path, phase 16's
+ranks' eval too; ``int8_conv`` and
 ``quantize_act`` count phase 14's serving, their times summed over its shapes
 at batch 32), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
@@ -284,6 +321,9 @@ VOC0712_TRAINVAL = 16551
 ZOO = {"resnet50": (SSD300_PRIORS, 53, HEAD_F32_BATCH), "ssd512": (24564, 0, 2)}
 ZOO_UPDATE_TOL, ZOO_STATS_RTOL = 2e-2, 5e-5
 EXPORT_BATCHES = (1, 3, 32)
+# ... exported for both device types; the CPU serves the moved program at
+# these batches (a bf16 SSD300 forward on the host's cores takes seconds)
+EXPORT_PLATFORMS, EXPORT_CPU_BATCHES = ("cuda", "cpu"), (1, 3)
 EXPORT_NMS_SHAPES = [(21, 200), (672, 200), (1344, 200)]
 # phase 14: int8 SSD300-VGG16 (VGG16's 15 convs, the 8 extras, 6 loc + 6 conf);
 # the kernels checked at batches 1 and 32; the float32 int8 forward card
@@ -293,6 +333,14 @@ EXPORT_NMS_SHAPES = [(21, 200), (672, 200), (1344, 200)]
 INT8_CONVS, INT8_BATCHES, INT8_F32_TOL, MAP_DROP = 35, (1, 32), 1e-2, 0.05
 # phase 15: the train images of the device augmentation's statistics
 AUG_STAT_IMAGES = 128
+# phase 16: the epochs of the data-parallel recipe; the float64 step's global
+# batch and bounds, 2 ranks against 1 (losses rtol, the largest update error
+# over the largest update, a running statistic's error as
+# tests/torch_port_ddp_worker.py::running_stats_err measures it); the merged
+# mAP against one process's
+DDP_EPOCHS, DDP_F64_BATCH, DDP_F64_LIMITS, DDP_MAP_TOL = 3, 8, (1e-6, 1e-5, 1e-9), 1e-3
+# phase 17: profiler.timed against CUDA events
+TIMED_RTOL = 0.1
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -376,13 +424,21 @@ def check_conv_kernel(seed):
 
 
 class ScalarWriter:
-    """The summary writer the Solver is given: it keeps every scalar."""
+    """The summary writer the Solver is given: it keeps every scalar, and
+    the tag, step, shape and dtype of every image and histogram."""
 
     def __init__(self):
         self.scalars = {}
+        self.images, self.histograms = [], []
 
     def add_scalar(self, tag, value, step):
         self.scalars.setdefault(tag, []).append((step, float(value)))
+
+    def add_image(self, tag, img, step):
+        self.images.append((tag, step, tuple(np.shape(img)), str(np.asarray(img).dtype)))
+
+    def add_histogram(self, tag, values, step):
+        self.histograms.append((tag, step, tuple(np.shape(values))))
 
 
 def training_config(root, exp):
@@ -961,7 +1017,9 @@ def rows_times(call, imgs):
 # registrations and the artifact, nothing else of the port. It serves each
 # batch once with the kernels' launches counted around the call (NMS in
 # "launches", the int8 kernels in "int8_launches"), saves the rows and times
-# the program (argv: artifact dir, images .npy, rows .npz, repo root).
+# the program (argv: artifact dir, images .npy, rows .npz, repo root, and
+# optionally the device to move the program to with its batches; on the CPU
+# it serves those batches and times nothing).
 EXPORT_SERVER = r"""
 import json, sys, time
 import numpy as np, torch
@@ -971,12 +1029,14 @@ from ssds_tpu_torch.ops.cuda import nms as cuda_nms
 sys.path.insert(0, sys.argv[4])
 from chip_smoke import EXPORT_BATCHES, rows_times
 t0 = time.perf_counter()
-predict, meta = load_exported(sys.argv[1])
+moved = len(sys.argv) > 5
+predict, meta = load_exported(sys.argv[1], device=sys.argv[5] if moved else None)
 load_s = time.perf_counter() - t0
 imgs = np.load(sys.argv[2])
 dev = torch.device(meta["device"])
 launches, int8_launches, rows = {}, {}, {}
-for b in EXPORT_BATCHES:
+batches = [int(b) for b in sys.argv[6].split(",")] if moved else EXPORT_BATCHES
+for b in batches:
     x = torch.from_numpy(imgs[:b]).to(dev)
     before = cuda_nms.nms_mask.launches
     before8 = (cuda_int8.quantize_act.launches, cuda_int8.int8_conv.launches)
@@ -985,7 +1045,8 @@ for b in EXPORT_BATCHES:
     int8_launches[str(b)] = [cuda_int8.quantize_act.launches - before8[0],
                              cuda_int8.int8_conv.launches - before8[1]]
 np.savez(sys.argv[3], **rows)
-lat, ips = rows_times(lambda x: predict(torch.from_numpy(x).to(dev)).cpu(), imgs)
+lat, ips = ([], None) if moved else rows_times(
+    lambda x: predict(torch.from_numpy(x).to(dev)).cpu(), imgs)
 print(json.dumps({"meta": meta, "load_s": load_s, "launches": launches,
                   "int8_launches": int8_launches, "lat": lat, "img_s": ips,
                   "modules": sorted(m for m in sys.modules if m.startswith(("ssds_tpu", "jax")))}))
@@ -993,14 +1054,14 @@ print(json.dumps({"meta": meta, "load_s": load_s, "launches": launches,
 
 
 def serve_exported(det, imgs, tmp):
-    """Export ``det`` (symbolic batch) into ``tmp`` and serve ``imgs`` from a
-    fresh ``EXPORT_SERVER`` process: ``(served json, rows by batch,
-    export seconds, artifact MB, server seconds)``; raises if the process
-    fails or imports a model module."""
+    """Export ``det`` (symbolic batch, for ``EXPORT_PLATFORMS``) into ``tmp``
+    and serve ``imgs`` from a fresh ``EXPORT_SERVER`` process: ``(served
+    json, rows by batch, export seconds, artifact MB, server seconds)``;
+    raises if the process fails or imports a model module."""
     from ssds_tpu_torch.export import export_detector
 
     t0 = time.perf_counter()
-    served_dir = export_detector(det, os.path.join(tmp, "served"))
+    served_dir = export_detector(det, os.path.join(tmp, "served"), platforms=EXPORT_PLATFORMS)
     export_s = time.perf_counter() - t0
     artifact_mb = os.path.getsize(os.path.join(served_dir, "predict.pt2")) / 1e6
     np.save(os.path.join(tmp, "imgs.npy"), imgs)
@@ -1022,6 +1083,94 @@ def serve_exported(det, imgs, tmp):
     if bad_modules or served["meta"]["batch"] != "symbolic":
         raise AssertionError(f"the serving process imported {bad_modules}, meta {served['meta']}")
     return served, rows, export_s, artifact_mb, server_s
+
+
+def check_export_moved(seed, served_dir, imgs, tmp, log):
+    """Phase 13c: the card's artifact moved to the CPU by a fresh
+    ``EXPORT_SERVER`` process (``load_exported(dir, device="cpu")``), its rows
+    at ``EXPORT_CPU_BATCHES`` identical to an in-process CPU detector's on the
+    same weights (unpruned, as a symbolic batch serves)."""
+    import dataclasses
+
+    from ssds_tpu_torch.config import default_config
+    from ssds_tpu_torch.detector import ObjectDetector, Predict
+
+    t0 = time.perf_counter()
+    rows_path = os.path.join(tmp, "rows_cpu.npz")
+    proc = subprocess.run([sys.executable, "-c", EXPORT_SERVER, served_dir,
+                           os.path.join(tmp, "imgs.npy"), rows_path, REPO, "cpu",
+                           ",".join(map(str, EXPORT_CPU_BATCHES))],
+                          capture_output=True, text=True, timeout=600, cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise AssertionError(f"the CPU serving process failed:\n{proc.stderr[-4000:]}")
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+    if served["meta"]["device"] != "cpu" or served["meta"]["platforms"] != list(EXPORT_PLATFORMS):
+        raise AssertionError(f"the moved program's meta: {served['meta']}")
+    cpu = ObjectDetector(default_config(), device="cpu", seed=seed)
+    unpruned = Predict(cpu.model, cpu.means, cpu.priors,
+                       dataclasses.replace(cpu.post, pre_nms_top_n=0), cpu.dtype)
+    with np.load(rows_path) as f:
+        for b in EXPORT_CPU_BATCHES:
+            with torch.no_grad():
+                want = unpruned(torch.from_numpy(imgs[:b])).numpy()
+            if not np.array_equal(f[str(b)], want):
+                d = float(np.abs(f[str(b)] - want).max())
+                raise AssertionError(f"the program moved to the CPU at batch {b}: rows != the "
+                                     f"in-process CPU detector's (max |d| {d:.3e})")
+    s = time.perf_counter() - t0
+    log(f"the card's artifact (platforms {list(EXPORT_PLATFORMS)}) moved to the CPU by a fresh "
+        f"process (load_exported(device='cpu'), {served['load_s']:.2f} s): rows at batches "
+        f"{list(EXPORT_CPU_BATCHES)} identical to an in-process CPU ObjectDetector's ({s:.1f} s)")
+    return {"moved_cpu_rows_identical": True, "moved_cpu_load_s": served["load_s"],
+            "moved_cpu_s": s}
+
+
+def check_export_sharded(served_dir, imgs, dev, log):
+    """Phase 13c: ``load_exported_sharded`` over every visible card (or two
+    programs on card 0 when there is one) at batch ``max(EXPORT_BATCHES)``:
+    rows identical to one program's on the same pieces, the NMS kernel
+    launched once a piece. Beside it, one program's rows on the whole batch
+    against its rows on the pieces: cuDNN may take other algorithms at
+    another batch size, so their last bits, and then the NMS's order, can
+    move (``export_batch_dependence``)."""
+    from ssds_tpu_torch.export import load_exported, load_exported_sharded
+    from ssds_tpu_torch.ops.cuda.nms import nms_mask
+
+    count = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(count)] if count > 1 else [str(dev)] * 2
+    single, _ = load_exported(served_dir)
+    sharded, meta = load_exported_sharded(served_dir, devices)
+    b = max(EXPORT_BATCHES)
+    x = torch.from_numpy(imgs[:b]).to(dev)
+    cuts = [i * b // len(devices) for i in range(len(devices) + 1)]
+    pieces = torch.cat([single(x[lo:hi]) for lo, hi in zip(cuts, cuts[1:])])
+    nms_mask.launches = 0
+    got = sharded(x)
+    torch.cuda.synchronize()
+    launches = nms_mask.launches
+    same = torch.equal(got, pieces)
+    dependence = export_batch_dependence(single(x), pieces)
+    log(f"load_exported_sharded over {meta['devices']} at batch {b}: rows "
+        f"{'identical to' if same else 'DIFFER from'} one program's on the same pieces; NMS "
+        f"kernel launches {launches}. One program at batch {b} against the same on the pieces "
+        f"{cuts}: {dependence}")
+    if not same or launches != len(devices):
+        raise AssertionError("the sharded export's rows differ from one program's on the same "
+                             f"pieces, or it launched the NMS kernel {launches} times")
+    return {"sharded_devices": meta["devices"], "nms_launches_sharded": launches,
+            "sharded_rows_identical": same, "batch_dependence": dependence}
+
+
+def export_batch_dependence(whole, pieces):
+    """How far rows ``[B, C, K, 5]`` of one batch are from the same images'
+    rows served in pieces: the largest difference and the rows and images
+    that differ at all."""
+    d = (whole - pieces).abs()
+    rows = d.amax(-1) > 0
+    return {"identical": bool(not rows.any()), "max_abs_diff": float(d.max()),
+            "rows_differ": int(rows.sum()), "rows": rows.numel(),
+            "images_differ": int(rows.flatten(1).any(1).sum())}
 
 
 def check_export(seed, dev, card, log):
@@ -1051,6 +1200,9 @@ def check_export(seed, dev, card, log):
     with tempfile.TemporaryDirectory() as tmp:
         served, rows, out["export_s"], out["artifact_mb"], out["server_s"] = serve_exported(
             det, imgs, tmp)
+        served_dir = os.path.join(tmp, "served")
+        out.update(check_export_moved(seed, served_dir, imgs, tmp, log))
+        out.update(check_export_sharded(served_dir, imgs, dev, log))
     out["server_modules"] = served["modules"]
     out["nms_launches_export"] = sum(served["launches"].values())
     for b in EXPORT_BATCHES:
@@ -1649,12 +1801,310 @@ def check_device_aug(seed, dev, card, log, native_img_s):
     return out
 
 
+def ddp_worker():
+    """``tests/torch_port_ddp_worker.py`` (it imports no JAX): the ranks'
+    runner of phase 16 and its helpers."""
+    tests = os.path.join(REPO, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_port_ddp_worker
+
+    return torch_port_ddp_worker
+
+
+def ddp_launch(args, nproc, timeout=600):
+    """``python -m torch.distributed.run --nproc_per_node nproc <args>`` on a
+    free port, from the repository; returns the finished process."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc),
+           "--master_addr", "localhost", "--master_port", str(ddp_worker().free_port())] + args
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=REPO,
+                          env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="4"))
+
+
+def ddp_layout():
+    """``(ranks, device, backend)`` of phases 16b-c: one rank a card on NCCL
+    when there are two or more, else two gloo ranks on card 0."""
+    count = torch.cuda.device_count()
+    return (count, "cuda", "nccl") if count > 1 else (2, DEVICE, "gloo")
+
+
+def check_ddp(seed, dev, card, log):
+    """Phase 16: data-parallel SSDLite-MobileNetV2-300 (see the docstring)."""
+    from ssds_tpu_torch.checkpoint import find_previous
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.data.factory import load_data
+    from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
+    from ssds_tpu_torch.models.layers import BatchNorm
+    from ssds_tpu_torch.ops.cuda.nms import nms_mask
+    from ssds_tpu_torch.solver import Solver
+    from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
+
+    worker = ddp_worker()
+    collect, errors, launch = worker.collect, worker.errors, worker.launch
+    t_phase = time.perf_counter()
+    ranks, ddp_dev, backend = ddp_layout()
+    count = torch.cuda.device_count()
+    out = {"card": card, "device_count": count, "ranks": ranks, "backend": backend,
+           "device": ddp_dev}
+    log(f"phase 16: {count} card(s): 16a the train CLI on {count} NCCL rank(s); 16b-c {ranks} "
+        f"{backend} ranks on {'one card each' if count > 1 else 'card 0'}")
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
+        root = os.path.join(tmp, "VOCdevkit")
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
+
+        # -- 16a: the train CLI under torch.distributed.run, NCCL, one epoch
+        cfg = lite_config(root, os.path.join(tmp, "exp_cli"))
+        cfg.TRAIN.update(MAX_EPOCHS=1, CHECKPOINTS_EPOCHS=1)
+        cfg.PHASE = ["train"]
+        cfg_path = os.path.join(tmp, "cli.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        proc = ddp_launch(["-m", "ssds_tpu_torch.tools.synth_voc", "--seed", str(seed),
+                           "--size", "300", "train", "--cfg", cfg_path,
+                           "--device", torch.device(DEVICE).type], count)
+        out["cli_s"] = time.perf_counter() - t0
+        manifest = find_previous(cfg.EXP_DIR)
+        if proc.returncode != 0 or manifest is None or manifest[0] != [1]:
+            raise AssertionError(f"16a: the train CLI on {count} NCCL rank(s): rc "
+                                 f"{proc.returncode}, manifest {manifest}\n"
+                                 f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        epoch_lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("epoch 1/1")]
+        log(f"16a: python -m torch.distributed.run --nproc_per_node {count} -m "
+            f"ssds_tpu_torch.tools.synth_voc ... train (the port's train CLI, NCCL): rc 0 in "
+            f"{out['cli_s']:.1f} s, manifest {manifest[0]}, {epoch_lines}")
+
+        # -- 16b: one float64 step, 2 ranks against 1 on the same card
+        lite = lite_config(root, os.path.join(tmp, "exp_f64"))
+        model, fmaps = create_model(lite.MODEL)
+        model = init_model(model, seed=seed)
+        loader = load_data(lite.DATASET, "train", image_size=lite.MODEL.IMAGE_SIZE,
+                           batch_size=DDP_F64_BATCH)
+        batch = next(iter(loader))
+        loader.close()
+        run = {"lite300": dict(model=lite.MODEL, train_cfg=lite.TRAIN,
+                               state_dict=model.state_dict(),
+                               priors=create_priors(lite.MODEL, fmaps),
+                               batch={k: batch[k] for k in ("images", "boxes", "labels", "valid")},
+                               steps=1, means=tuple(lite.DATASET.PIXEL_MEANS))}
+        t0 = time.perf_counter()
+        started = [launch(tmp, "f64_two", run, ranks, device=ddp_dev, backend=backend),
+                   launch(tmp, "f64_one", run, 1, device=DEVICE, backend="gloo")]
+        two, one = (collect(*st) for st in started)
+        loss, upd, _ = errors(two[0]["lite300"]["steps"], one[0]["lite300"]["steps"])[0]
+        stat = worker.running_stats_err(two[0]["lite300"]["steps"][-1][2],
+                                        one[0]["lite300"]["steps"][-1][2])
+        same = all(torch.equal(two[0]["lite300"]["steps"][-1][2][k], r["lite300"]["steps"][-1][2][k])
+                   for r in two[1:] for k in two[0]["lite300"]["steps"][-1][2])
+        out["f64_step"] = {"loss_rel_err": loss, "update_err_over_max_update": upd,
+                           "stats_rel_err": stat, "ranks_equal": same,
+                           "s": time.perf_counter() - t0}
+        log(f"16b: one float64 step (cuDNN float64) of SSDLite-MobileNetV2-300 at global batch "
+            f"{DDP_F64_BATCH}, {ranks} {backend} ranks against 1 rank on {DEVICE}: losses rel "
+            f"{loss:.2e} (bound {DDP_F64_LIMITS[0]:g}), largest update error over the largest "
+            f"update {upd:.2e} (bound {DDP_F64_LIMITS[1]:g}), running statistics {stat:.2e} "
+            f"(a mean in units of its std, a variance relative to itself; bound "
+            f"{DDP_F64_LIMITS[2]:g}); ranks' states equal: {same}")
+        if not same or not all(e < lim for e, lim in zip((loss, upd, stat), DDP_F64_LIMITS)):
+            raise AssertionError(f"16b: the {ranks}-rank float64 step is not the 1-rank step")
+
+        # -- 16c: the bf16 recipe, 3 epochs, the last eval merged over the ranks
+        lite = lite_config(root, os.path.join(tmp, "exp_ddp"))
+        lite.TRAIN.update(MAX_EPOCHS=DDP_EPOCHS, CHECKPOINTS_EPOCHS=1)
+        lite.TEST.TEST_SCOPE = [DDP_EPOCHS, DDP_EPOCHS]
+        cfg_path = os.path.join(tmp, "ddp.json")
+        with open(cfg_path, "w") as f:
+            json.dump(lite, f)
+        prefix = os.path.join(tmp, "rank")
+        t0 = time.perf_counter()
+        proc = ddp_launch([os.path.join(REPO, "tests", "torch_port_ddp_worker.py"),
+                           "--lifecycle", cfg_path, "--out", prefix, "--device", ddp_dev,
+                           "--backend", backend, "--synthetic-voc", f"{seed},300"], ranks)
+        out["lifecycle_s"] = time.perf_counter() - t0
+        if proc.returncode != 0 or proc.stdout.count("DDP_WORKER_OK") != ranks:
+            raise AssertionError(f"16c: the {ranks}-rank lifecycle failed (rc {proc.returncode})"
+                                 f"\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        reports, states = [], []
+        for r in range(ranks):
+            with open(f"{prefix}.{r}.json") as f:
+                reports.append(json.load(f))
+            states.append(torch.load(f"{prefix}.{r}.pt", map_location="cpu"))
+        sc = reports[0]["scalars"]
+        values = [v for rep in reports for vals in rep["scalars"].values() for _, v in vals]
+        maps = [rep["scalars"]["Eval/mAP"][-1][1] for rep in reports]
+        tests = [rep["test_map"] for rep in reports]
+        manifest = find_previous(lite.EXP_DIR)
+        start = init_model(create_model(lite.MODEL)[0], seed=0).state_dict()
+        bns = [n for n, m in create_model(lite.MODEL)[0].named_modules() if isinstance(m, BatchNorm)]
+        moved = sum(not torch.equal(states[0][f"{n}.running_var"], start[f"{n}.running_var"])
+                    for n in bns)
+        equal = all(torch.equal(st[k], states[0][k]) for st in states[1:] for k in states[0])
+        out.update(epoch_loss=[l + c for (_, l), (_, c) in zip(sc["loss_loc"], sc["loss_conf"])],
+                   eval_map=maps, test_map=tests, manifest_epochs=manifest and manifest[0],
+                   bn_running_var_moved=moved, batchnorms=len(bns), rank_states_equal=equal,
+                   nms_launches_ranks=sum(rep["nms_launches"] for rep in reports),
+                   train_step_ms_ranks=reports[0]["train_step_ms"],
+                   allreduce_bn_ms=reports[0].get("allreduce_bn_ms"),
+                   allreduce_grads_ms=reports[0].get("allreduce_grads_ms"),
+                   eval_img_s_ranks=reports[0]["test_images"] / reports[0]["test_s"])
+        log(f"16c: SSDLite-MobileNetV2-300 bf16 at global batch {lite.TRAIN.BATCH_SIZE} on "
+            f"{ranks} {backend} ranks, {DDP_EPOCHS} epochs in {out['lifecycle_s']:.1f} s: epoch "
+            f"losses {[round(v, 4) for v in out['epoch_loss']]}, eval mAP by rank {maps}, test "
+            f"mAP by rank {tests}, manifest epochs {out['manifest_epochs']}, {moved}/{len(bns)} "
+            f"BatchNorms' running variance moved, ranks' states equal: {equal}, NMS kernel "
+            f"launches in the ranks {out['nms_launches_ranks']}")
+        if not all(np.isfinite(values)) or len(set(maps)) != 1 or len(set(tests)) != 1:
+            raise AssertionError(f"16c: losses finite {all(np.isfinite(values))}, mAP by rank "
+                                 f"{maps}, test mAP by rank {tests}")
+        if out["manifest_epochs"] != list(range(1, DDP_EPOCHS + 1)) or moved != len(bns) \
+                or len(bns) != LITE_BATCHNORMS or not equal or out["nms_launches_ranks"] <= 0:
+            raise AssertionError("16c: manifest, running statistics or NMS launches wrong")
+
+        # one process on the checkpoint: the merged mAP; then the 1-rank step
+        one = Solver(lite, device=dev, writer=ScalarWriter(), seed=seed)
+        try:
+            t0 = time.perf_counter()
+            single = one.test_model()
+            torch.cuda.synchronize()
+            test_s = time.perf_counter() - t0
+            loader = one.get_loader("train")
+            one.build_state(len(loader))
+            one._train_step = one.make_train_step()
+            out["train_step_ms_one"] = train_step_ms(one)
+        finally:
+            one.close()
+        out.update(test_map_one=single, map_diff=abs(single - tests[0]),
+                   eval_img_s_one=len(one.get_loader("test").dataset) / test_s)
+        log(f"16c: a 1-process Solver.test_model on the {ranks}-rank checkpoint: mAP {single:.6f}, "
+            f"|merged - single| {out['map_diff']:.2e} (bound {DDP_MAP_TOL:g})")
+        if out["map_diff"] > DDP_MAP_TOL:
+            raise AssertionError("16c: the merged mAP is not the 1-process mAP")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"16c times ({card}): train step at global batch {lite.TRAIN.BATCH_SIZE}: {ranks} "
+        f"{backend} ranks {out['train_step_ms_ranks']:.2f} ms, 1 rank "
+        f"{out['train_step_ms_one']:.2f} ms (alone, one {backend} all-reduce of a BatchNorm's "
+        f"statistics {out['allreduce_bn_ms']:.3f} ms, of the gradients "
+        f"{out['allreduce_grads_ms']:.3f} ms; a step makes {2 * LITE_BATCHNORMS} of the first); "
+        f"test_model (forward, merge, VOC eval) "
+        f"{out['eval_img_s_ranks']:.1f} img/s on {ranks} ranks, {out['eval_img_s_one']:.1f} img/s "
+        f"on 1; phase 16 {out['phase_s']:.1f} s")
+    return out
+
+
+def check_observability(seed, dev, card, log):
+    """Phase 17: ``utils.profiler`` and ``Solver.visualize_epoch`` on SSD300-VGG16."""
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.detector import ObjectDetector
+    from ssds_tpu_torch.ops.cuda.nms import nms_mask
+    from ssds_tpu_torch.solver import Solver
+    from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
+    from ssds_tpu_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
+        root, exp = os.path.join(tmp, "VOCdevkit"), os.path.join(tmp, "exp")
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
+        cfg = training_config(root, exp)
+        writer = ScalarWriter()
+        solver = Solver(cfg, device=dev, writer=writer, seed=seed)
+        try:
+            loader = solver.get_loader("train")
+            solver.build_state(len(loader))
+            step = solver._train_step = solver.make_train_step()
+            host = next(iter(loader))
+            for _ in range(2):  # warm-up
+                step(solver._upload(host), solver.step)
+            torch.cuda.synchronize()
+            with profiler.trace(os.path.join(tmp, "trace"), name="train") as prof:
+                for _ in range(3):
+                    with profiler.annotate("train_step"):
+                        step(solver._upload(host), solver.step)
+            train_trace = trace_summary(prof.trace_path)
+            det = ObjectDetector(cfg, device=dev, seed=seed)
+            imgs = list(np.random.default_rng(seed).integers(0, 256, (32, 300, 300, 3), np.uint8))
+            det.predict_batch(imgs, threshold=0.01)
+            nms_mask.launches = 0
+            with profiler.trace(os.path.join(tmp, "trace"), name="predict") as prof:
+                with profiler.annotate("predict_batch"):
+                    det.predict_batch(imgs, threshold=0.01)
+            serve_trace = trace_summary(prof.trace_path)
+            out["nms_launches_traced"] = nms_mask.launches
+            out["train_trace"], out["serve_trace"] = train_trace, serve_trace
+            log(f"17: torch.profiler trace of 3 SSD300-VGG16 train steps: {train_trace['spans']} "
+                f"'train_step' spans, {train_trace['kernels']} card kernel events, "
+                f"{train_trace['mb']:.1f} MB; of predict_batch x32: {serve_trace['kernels']} "
+                f"card kernel events, NMS kernel events {serve_trace['nms_kernels']} "
+                f"(launches {out['nms_launches_traced']})")
+            if train_trace["spans"] != 3 or train_trace["kernels"] <= 0 or \
+                    serve_trace["spans"] != 1 or serve_trace["nms_kernels"] <= 0:
+                raise AssertionError(f"17: the traces lack the spans or kernels: {out}")
+
+            # timed against CUDA events around the same 5 steps
+            results = {}
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            with profiler.timed("steps", results):
+                start.record()
+                for _ in range(5):
+                    step(solver._upload(host), solver.step)
+                end.record()
+            events_s = start.elapsed_time(end) / 1e3
+            out.update(timed_s=results["steps"], events_s=events_s,
+                       timed_rel_diff=abs(results["steps"] - events_s) / events_s)
+            log(f"17: profiler.timed {results['steps'] * 1e3:.2f} ms against CUDA events "
+                f"{events_s * 1e3:.2f} ms over 5 train steps: {out['timed_rel_diff']:.2%} apart "
+                f"(bound {TIMED_RTOL:.0%}) ({card})")
+            if out["timed_rel_diff"] > TIMED_RTOL:
+                raise AssertionError("17: profiler.timed disagrees with CUDA events")
+
+            # visualize_epoch through a recording writer
+            solver.visualize_epoch(1)
+            tags = [t for t, *_ in writer.images]
+            levels = len(solver.feature_maps)
+            n_params = len(list(solver.model.parameters()))
+            trainable = sum(p.requires_grad for p in solver.model.parameters())
+            out.update(images=len(tags), histograms=len(writer.histograms), parameters=n_params)
+            want = ({"priors/center_cells"} | {f"priors/level{k}" for k in range(levels)}
+                    | {f"samples/{i}" for i in range(8)}
+                    | {f"features/level{k}" for k in range(levels)}
+                    | {f"features/level{k}/channels" for k in range(levels)})
+            log(f"17: visualize_epoch wrote {len(tags)} images ({levels} prior levels, 8 samples, "
+                f"{levels} feature-map grids and heatmaps) and {len(writer.histograms)} gradient "
+                f"histograms for {n_params} parameters ({trainable} trainable)")
+            if set(tags) != want or len(tags) != len(want) or len(writer.histograms) != n_params \
+                    or trainable != n_params:
+                raise AssertionError(f"17: visualize_epoch wrote {sorted(tags)}, "
+                                     f"{len(writer.histograms)} histograms")
+        finally:
+            solver.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 17 {out['phase_s']:.1f} s")
+    return out
+
+
+def trace_summary(path):
+    """A Chrome trace's size, ``train_step`` / ``predict_batch`` spans, card
+    kernel events and NMS kernel events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"mb": os.path.getsize(path) / 1e6,
+            "spans": sum(e.get("name") in ("train_step", "predict_batch") and
+                         e.get("cat") == "user_annotation" for e in events),
+            "kernels": len(kernels),
+            "nms_kernels": sum("nms_mask_kernel" in e.get("name", "") for e in kernels)}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="weights, images and NMS sets")
     parser.add_argument("--report", default="",
                         help="also write every number of the run to this JSON file")
     args = parser.parse_args(argv)
+    t_start = time.perf_counter()
 
     # -- 1. inventory ---------------------------------------------------------
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
@@ -1829,6 +2279,14 @@ def main(argv=None):
     # -- 15. SSDLite-MobileNetV2-300 COCO with DATASET.DEVICE_AUG -----------------
     device_aug = check_device_aug(args.seed, dev, card, log, coco["loader_img_s_native"])
     report["device_aug"] = device_aug
+
+    # -- 16. data-parallel SSDLite-MobileNetV2-300 ----------------------------------
+    ddp = check_ddp(args.seed, dev, card, log)
+    report["ddp"] = ddp
+
+    # -- 17. observability: traces, timed, visualize_epoch ---------------------------
+    observability = check_observability(args.seed, dev, card, log)
+    report["observability"] = observability
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -1890,6 +2348,18 @@ def main(argv=None):
         "epoch_loss", "steps", "resume_equal", "loader_img_s_resize_only", "loader_img_s_native",
         "train_step_ms", "train_step_no_aug_ms", "augment_ms", "stats_device", "stats_host",
         "stats_within_bounds", "train_model_s", "phase_s", "card")}}))
+    log(json.dumps({"ddp": {k: ddp[k] for k in (
+        "device_count", "ranks", "backend", "device", "cli_s", "f64_step", "epoch_loss",
+        "eval_map", "test_map", "test_map_one", "map_diff", "manifest_epochs",
+        "bn_running_var_moved", "rank_states_equal", "nms_launches_ranks", "train_step_ms_ranks",
+        "train_step_ms_one", "allreduce_bn_ms", "allreduce_grads_ms", "eval_img_s_ranks",
+        "eval_img_s_one", "lifecycle_s", "phase_s", "card")}}))
+    log(json.dumps({"observability": {k: observability[k] for k in (
+        "train_trace", "serve_trace", "nms_launches_traced", "timed_s", "events_s",
+        "timed_rel_diff", "images", "histograms", "parameters", "phase_s", "card")},
+        "export_moved_sharded": {k: export[k] for k in (
+            "moved_cpu_rows_identical", "moved_cpu_s", "sharded_devices", "nms_launches_sharded",
+            "sharded_rows_identical", "batch_dependence")}}))
     i8b = int8["bench"]["sums"][f"b{INT8_BATCHES[-1]}"]
     int8_shape = (f"SSD300-VGG16's {int8['int8_convs']} int8 convs and "
                   f"{int8['shapes'] - int8['int8_convs']} MobileNetV2 / DarkNet-53 shapes, "
@@ -1905,7 +2375,11 @@ def main(argv=None):
         head_paths[f"{path}_serve"] = zoo[name]["nms_launches_serve"]
         head_paths[f"{path}_train"] = zoo[name]["nms_launches_eval"] + \
             zoo[name]["nms_launches_test"]
+    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s")
     head_paths["export_serve"] = export["nms_launches_export"]
+    head_paths["export_sharded_serve"] = export["nms_launches_sharded"]
+    head_paths["ssd_lite_mobilenetv2_ddp_eval"] = ddp["nms_launches_ranks"]
+    head_paths["ssd300_vgg16_traced_serve"] = observability["nms_launches_traced"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55",
@@ -1913,7 +2387,8 @@ def main(argv=None):
         + sum(h["nms_launches_serve"] for h in heads.values())
         + sum(y["nms_launches_serve"] for y in yolo.values())
         + zoo["resnet50"]["nms_launches_serve"] + zoo["ssd512"]["nms_launches_serve"]
-        + export["nms_launches_export"],
+        + export["nms_launches_export"] + export["nms_launches_sharded"]
+        + observability["nms_launches_traced"],
         "launches_by_path": {"ssd300_vgg16_serve": launches,
                              "ssd_lite_mobilenetv2_serve": lite["nms_launches_serve"],
                              "ssd_lite_mobilenetv2_coco_serve": coco["nms_launches_serve"],

@@ -17,7 +17,12 @@ export (:mod:`ssds_tpu_torch.export`: a ``torch.export`` program that
 reloads with torch and the operators' registrations alone), augmentation on
 the device (:mod:`ssds_tpu_torch.ops.augment_device`) and int8 serving
 (:mod:`ssds_tpu_torch.quant`, whose convs are hand-written CUDA kernels,
-:mod:`ssds_tpu_torch.ops.cuda.int8_conv`).
+:mod:`ssds_tpu_torch.ops.cuda.int8_conv`). Then data parallelism over
+``torch.distributed`` with the JAX step's global reductions
+(:mod:`ssds_tpu_torch.parallel`), an export that moves between devices and
+serves over several, observability (:mod:`ssds_tpu_torch.utils`) and the
+demo's image, video and camera modes: all that the JAX package does but its
+spatial mesh axis.
 """
 
 __version__ = "0.1.0"

@@ -3,15 +3,17 @@
 Counterpart of :mod:`ssds_tpu.config`. The default tree is the same, so
 every ``experiments/cfgs/*.yml`` merges into it unchanged; keys only the
 JAX package reads (``MODEL.S2D_STEM`` / ``S2D_STAGES`` and ``TPU.*`` but for
-``TPU.COMPUTE_DTYPE`` and ``TPU.DEBUG_NANS``, which the port's Solver reads)
-are kept so that a config file is valid for both packages. ``yaml`` is imported
-inside :func:`cfg_from_file` / :func:`cfg_from_list` only: a machine without
-PyYAML can still build the default config and serve.
+``TPU.COMPUTE_DTYPE``, ``TPU.DEBUG_NANS`` and ``TPU.MESH``, which the port's
+Solver reads) are kept so that a config file is valid for both packages.
+``yaml`` is imported inside :func:`cfg_from_file` / :func:`cfg_from_list`
+only: a machine without PyYAML can still build the default config, serve,
+and read a config written as JSON.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 from typing import Any
 
 
@@ -105,7 +107,7 @@ def default_config() -> AttrDict:
             MAX_GT=64,
             DEVICE_AUG=False,
         ),
-        TPU=_ad(  # JAX-only but for COMPUTE_DTYPE and DEBUG_NANS (the port's Solver)
+        TPU=_ad(  # JAX-only but for COMPUTE_DTYPE, DEBUG_NANS and MESH (the port's Solver)
             MESH=_ad(DATA=-1, SPATIAL=1),
             COMPUTE_DTYPE="bfloat16",
             DONATE=True,
@@ -298,11 +300,16 @@ def _merge_a_into_b(a: dict, b: AttrDict, path: str = "") -> None:
 
 def cfg_from_file(filename: str, base: AttrDict | None = None) -> AttrDict:
     """Load a YAML experiment file merged over the defaults; returns a NEW
-    tree and refreshes the module-global ``cfg`` in place."""
-    import yaml
-
+    tree and refreshes the module-global ``cfg`` in place. A ``.json`` file
+    (JSON is YAML's subset) is read with the standard library, for machines
+    without PyYAML."""
     with open(filename) as f:
-        yaml_cfg = yaml.safe_load(f) or {}
+        if filename.endswith(".json"):
+            yaml_cfg = json.load(f)
+        else:
+            import yaml
+
+            yaml_cfg = yaml.safe_load(f) or {}
     if not isinstance(yaml_cfg, dict):
         raise TypeError(f"{filename}: expected a YAML mapping, got {type(yaml_cfg).__name__}")
     out = copy.deepcopy(base) if base is not None else default_config()

@@ -99,13 +99,16 @@ class DetectionLoader:
     on a host of at most 2 cores it loads inline); ``num_workers = 0`` loads
     inline. Shuffling is ``random.Random(seed + epoch)``; with
     ``num_shards > 1`` each shard takes its interleaved slice of the same
-    permutation (one process's share, for data parallelism).
+    permutation (one rank's share of the train set, for data parallelism).
+    ``image_range = (start, end)`` restricts the loader to those images (one
+    rank's contiguous share of the eval set, :meth:`range_view`).
     """
 
     def __init__(self, dataset, batch_size: int, max_gt: int, shuffle: bool,
                  drop_last: bool, num_workers: int = 4, seed: int = 0,
-                 shard_id: int = 0, num_shards: int = 1):
+                 shard_id: int = 0, num_shards: int = 1, image_range=None):
         self.dataset = dataset
+        self.image_range = image_range
         self.batch_size = batch_size
         self.max_gt = max_gt
         self.shuffle = shuffle
@@ -122,16 +125,28 @@ class DetectionLoader:
         self.shard_id = shard_id
         self.num_shards = max(1, num_shards)
 
+    def image_span(self):
+        """The ``(start, end)`` of the images this loader covers."""
+        return self.image_range if self.image_range is not None else (0, len(self.dataset))
+
     def _shard_indices(self):
-        idx = list(range(len(self.dataset)))
+        idx = list(range(*self.image_span()))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
         if self.num_shards > 1:
             idx = idx[self.shard_id::self.num_shards]
         return idx
 
+    def range_view(self, start: int, end: int) -> "DetectionLoader":
+        """A loader over the images ``[start, end)`` of the same dataset, in
+        order, every image kept: one rank's share of a sharded eval."""
+        return DetectionLoader(self.dataset, batch_size=self.batch_size, max_gt=self.max_gt,
+                               shuffle=False, drop_last=False, num_workers=self.num_workers,
+                               seed=self.seed, image_range=(start, end))
+
     def __len__(self):
-        n = len(self.dataset) // self.num_shards
+        start, end = self.image_span()
+        n = (end - start) // self.num_shards
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
@@ -223,12 +238,15 @@ class DetectionLoader:
             pass  # interpreter teardown
 
 
-def load_data(dataset_cfg, phase: str, image_size=None, batch_size: int = 32) -> DetectionLoader:
+def load_data(dataset_cfg, phase: str, image_size=None, batch_size: int = 32,
+              shard_id: int = 0, num_shards: int = 1) -> DetectionLoader:
     """The phase's loader (reference ``load_data(cfg.DATASET, phase)``).
 
     ``phase``: 'train' (TRAIN_SETS, augmentation PROB; resize only with
-    ``DEVICE_AUG``, whose augmentation the train step runs) or 'eval' /
-    'test' (TEST_SETS, PROB = -1).
+    ``DEVICE_AUG``, whose augmentation the train step runs), 'eval' /
+    'test' (TEST_SETS, PROB = -1) or 'visualize' (TRAIN_SETS, PROB = -1).
+    ``shard_id`` / ``num_shards``: this rank's interleaved share of the
+    permutation (data parallelism; ``batch_size`` is then the rank's).
     """
     name = dataset_cfg.DATASET
     if name not in dataset_map:
@@ -241,10 +259,13 @@ def load_data(dataset_cfg, phase: str, image_size=None, batch_size: int = 32) ->
             prob = -1  # the host only resizes; the train step augments on the device
     elif phase in ("eval", "test"):
         sets, prob, shuffle, drop_last = dataset_cfg.TEST_SETS, -1, False, False
+    elif phase == "visualize":
+        sets, prob, shuffle, drop_last = dataset_cfg.TRAIN_SETS, -1, False, False
     else:
         raise ValueError(f"unknown phase {phase!r}")
     pre = preproc(image_size, means, prob)
     dataset = dataset_map[name](dataset_cfg.DATASET_DIR, sets, preproc=pre)
     return DetectionLoader(
         dataset, batch_size=batch_size, max_gt=int(dataset_cfg.MAX_GT), shuffle=shuffle,
-        drop_last=drop_last, num_workers=int(dataset_cfg.NUM_WORKERS))
+        drop_last=drop_last, num_workers=int(dataset_cfg.NUM_WORKERS), shard_id=shard_id,
+        num_shards=num_shards)

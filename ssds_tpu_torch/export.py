@@ -17,8 +17,23 @@ Files written to ``<dir>``:
     the ``torch.export.ExportedProgram`` (``torch.export.save``), its
     parameters and buffers on the device it was exported on.
 ``export.json``
-    the head and backbone names, image size, class count, batch mode and
-    device, so a server can check what it is loading.
+    the head and backbone names, image size, class count, batch mode,
+    device and ``platforms`` (the device types the artifact is meant for),
+    so a server can check what it is loading.
+
+One artifact serves on either device type (the counterpart of the JAX
+package's ``platforms=``): every operator in the program has a CPU and a
+CUDA implementation, and ``load_exported(dir, device=...)`` moves the
+program, its weights, its constants (priors, means) and every device the
+trace baked into its nodes (``arange``, ``full``, ``to``) to another device
+(``torch.export.passes.move_to_device_pass``, then a check that nothing is
+left on the old one). :func:`load_exported_sharded` serves data-parallel
+over several devices: one moved program a device, the batch split in order,
+every piece launched before any result is read, the rows concatenated on the
+first device: the single program's rows on the same pieces. A symbolic-batch
+program takes the unpruned path at every size, so on the CPU those are its
+rows on the whole batch; on the card cuDNN may pick other algorithms at
+another batch size, which moves the last bits of the scores.
 
 The batch dimension is exported symbolically by default (``Dim("batch")``:
 one artifact serves any batch size); pass ``batch=<int>`` for a fixed-shape
@@ -33,10 +48,8 @@ same way: its int8 weights and scales are the program's constants and its
 convs the operators ``ssds_tpu_torch::quantize_act`` and ``int8_conv``
 (``csrc/int8_conv.cu`` on the card), which the loader registers too.
 
-Not ported: the JAX package's multi-platform ``platforms=`` argument and
-``load_exported_sharded`` (ROADMAP.md).
-
     python -m ssds_tpu_torch.export --cfg <yml> --out DIR [--batch N] [--device cuda]
+                                    [--platforms cuda,cpu]
 """
 
 from __future__ import annotations
@@ -44,8 +57,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+from typing import Sequence
 
 import torch
+import torch.utils._pytree as pytree
+from torch.export.passes import move_to_device_pass
 
 import ssds_tpu_torch.ops.cuda.int8_conv  # noqa: F401  (registers the int8 operators)
 import ssds_tpu_torch.ops.cuda.nms  # noqa: F401  (registers ssds_tpu_torch::nms_mask)
@@ -55,9 +71,11 @@ _META = "export.json"
 # the example batch the program is traced at: 2, since torch.export
 # specialises a dynamic dimension whose example size is 0 or 1
 _EXAMPLE_BATCH = 2
+# the device types every operator of a program implements
+PLATFORMS = ("cuda", "cpu")
 
 
-def export_detector(det, out_dir: str, batch=None) -> str:
+def export_detector(det, out_dir: str, batch=None, platforms: Sequence[str] = None) -> str:
     """Export ``det``'s predict program for serving.
 
     Args:
@@ -66,9 +84,16 @@ def export_detector(det, out_dir: str, batch=None) -> str:
       out_dir: directory to create or fill.
       batch: ``None`` for a symbolic batch dimension (any batch size at call
         time); an ``int`` for a fixed-shape program.
+      platforms: the device types the artifact is meant for, e.g.
+        ``("cuda", "cpu")``, recorded in ``export.json`` (default: the
+        detector's); :func:`load_exported` moves the program to any of them.
 
     Returns ``out_dir``.
     """
+    platforms = list(platforms) if platforms else [det.device.type]
+    unknown = sorted(set(platforms) - set(PLATFORMS))
+    if unknown:
+        raise ValueError(f"platforms {unknown}: the program's operators run on {PLATFORMS}")
     h, w = det.img_hw
     b = _EXAMPLE_BATCH if batch is None else int(batch)
     example = torch.zeros((b, h, w, 3), dtype=torch.uint8, device=det.device)
@@ -84,6 +109,7 @@ def export_detector(det, out_dir: str, batch=None) -> str:
         "num_classes": int(det.cfg.POST_PROCESS.NUM_CLASSES),
         "batch": "symbolic" if batch is None else int(batch),
         "device": str(det.device),
+        "platforms": platforms,
         "input": "uint8 BGR [B,H,W,3] at image_size (host resize only)",
         "output": "[B, num_classes, max_detections, 5] (score,x1,y1,x2,y2)",
     }
@@ -92,19 +118,98 @@ def export_detector(det, out_dir: str, batch=None) -> str:
     return out_dir
 
 
-def load_exported(in_dir: str):
+def _devices_in(program) -> set:
+    """Every device a tensor or a node of ``program`` names: its state dict,
+    constants, the values its nodes record and the devices in their
+    arguments."""
+    found = {t.device for t in list(program.state_dict.values())
+             + [v for v in program.constants.values() if isinstance(v, torch.Tensor)]}
+    for m in program.graph_module.modules():
+        if not isinstance(m, torch.fx.GraphModule):
+            continue
+        for node in m.graph.nodes:
+            if isinstance(node.kwargs.get("device"), str):  # as the move writes it
+                found.add(node.kwargs["device"])
+            for leaf in pytree.tree_leaves((node.args, node.kwargs, node.meta.get("val"))):
+                if isinstance(leaf, torch.Tensor):
+                    found.add(leaf.device)
+                elif isinstance(leaf, torch.device):
+                    found.add(leaf)
+    return {torch.device(d) for d in found}
+
+
+def move_program(program, device):
+    """``program`` moved to ``device`` in place (weights, constants and every
+    device baked into a node); raises if a tensor or node still names
+    another device. Returns the program."""
+    device = torch.device(device)
+    program = move_to_device_pass(program, str(device))
+    left = {str(d) for d in _devices_in(program) if d != device}
+    if left:
+        raise RuntimeError(f"moving the exported program to {device} left {sorted(left)} in it")
+    return program
+
+
+def load_exported(in_dir: str, device=None):
     """Load a served model: returns ``(predict, meta)``.
 
     ``predict(images_u8) -> [B, C, max_detections, 5]`` float32: a tensor
-    of uint8 BGR images already at the exported ``image_size``, on the
-    device the program was exported on (``meta["device"]``). The weights
-    live in the returned module, which records no gradients; no
-    ``ssds_tpu_torch`` model code runs.
+    of uint8 BGR images already at the exported ``image_size``, on
+    ``meta["device"]``: the device the program was exported on, or
+    ``device``, to which the program is moved (a device type listed in
+    ``meta["platforms"]``). The weights live in the returned module, which
+    records no gradients; no ``ssds_tpu_torch`` model code runs.
     """
     with open(os.path.join(in_dir, _META)) as f:
         meta = json.load(f)
     program = torch.export.load(os.path.join(in_dir, _PROGRAM))
+    if device is not None and torch.device(device) != torch.device(meta["device"]):
+        device = torch.device(device)
+        platforms = meta.get("platforms", [torch.device(meta["device"]).type])
+        if device.type not in platforms:
+            raise ValueError(f"{in_dir} was exported for {platforms}, not {device.type}")
+        program = move_program(program, device)
+        meta = dict(meta, device=str(device))
     return program.module().requires_grad_(False), meta
+
+
+def load_exported_sharded(in_dir: str, devices=None):
+    """Serve an exported artifact data-parallel over several devices:
+    returns ``(predict, meta)``, ``meta["devices"]`` the devices.
+
+    ``devices`` defaults to every visible card (two entries may name one
+    device). One program is loaded and moved to each; ``predict(images_u8)``
+    splits the batch in order into one piece a device (fewer for a batch
+    smaller than the devices), launches every piece before it reads any
+    result, and returns the rows concatenated on the first device: the
+    single program's rows on the same pieces. The artifact's batch must be
+    symbolic (a fixed batch cannot be split); such a program takes the
+    unpruned path at every size, so where the device's kernels do not
+    depend on the batch size (the CPU's) the rows are the single program's
+    on the whole batch.
+    """
+    devices = [torch.device(d) for d in (devices if devices is not None else
+               [f"cuda:{i}" for i in range(torch.cuda.device_count())])]
+    if not devices:
+        raise RuntimeError("load_exported_sharded: no device given and no card visible")
+    programs, meta = [], None
+    for d in devices:
+        predict, meta = load_exported(in_dir, device=d)
+        programs.append(predict)
+    if meta["batch"] != "symbolic":
+        raise ValueError(f"{in_dir} has a fixed batch of {meta['batch']}: export it with a "
+                         "symbolic batch to split the batch over devices")
+    meta = dict(meta, device=str(devices[0]), devices=[str(d) for d in devices])
+
+    def predict(images_u8: torch.Tensor) -> torch.Tensor:
+        b = images_u8.shape[0]
+        n = max(1, min(len(programs), b))
+        cuts = [i * b // n for i in range(n + 1)]
+        outs = [programs[i](images_u8[cuts[i]:cuts[i + 1]].to(devices[i], non_blocking=True))
+                for i in range(n)]
+        return torch.cat([o.to(devices[0]) for o in outs])
+
+    return predict, meta
 
 
 def main(argv=None):
@@ -115,6 +220,9 @@ def main(argv=None):
     parser.add_argument("--batch", type=int, default=None,
                         help="fixed batch size (default: symbolic)")
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--platforms", default="",
+                        help="comma-separated device types the artifact is meant for "
+                             "(default: the --device's)")
     parser.add_argument("--seed", type=int, default=0,
                         help="random weights when the config names no RESUME_CHECKPOINT")
     args = parser.parse_args(argv)
@@ -123,7 +231,8 @@ def main(argv=None):
     from ssds_tpu_torch.detector import ObjectDetector
 
     det = ObjectDetector(cfg_from_file(args.cfg), device=args.device, seed=args.seed)
-    out = export_detector(det, args.out, batch=args.batch)
+    out = export_detector(det, args.out, batch=args.batch,
+                          platforms=[p for p in args.platforms.split(",") if p] or None)
     print(f"exported {det.cfg.MODEL.SSDS}/{det.cfg.MODEL.NETS} to {out} "
           f"(batch {'symbolic' if args.batch is None else args.batch}, {det.device})")
 

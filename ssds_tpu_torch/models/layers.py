@@ -20,6 +20,10 @@ The RFB heads' ``BasicConv`` (conv, BN, optional ReLU as named children
 :func:`no_autocast` opens the float32 region of a head that runs part of its
 work in float32 whatever the compute dtype (FSSD after its fusion BN).
 
+Under data parallelism (a process group of more than one rank) a train-mode
+:class:`BatchNorm` takes its statistics over every rank's batch, as the JAX
+package's jitted step over a sharded batch does (:class:`_GlobalBatchNorm`).
+
 These are the float paths: int8 serving swaps a :class:`Conv` for
 :class:`ssds_tpu_torch.quant.QuantConv2d`; the JAX package's space-to-depth
 stem is not ported (ROADMAP.md).
@@ -35,6 +39,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ssds_tpu_torch.parallel import sharding
 
 LayerSpec = Callable[[int], nn.Module]
 Size2 = Union[int, Tuple[int, int]]  # a kernel, stride, padding or dilation: one int or (h, w)
@@ -144,6 +150,8 @@ class BatchNorm(nn.BatchNorm2d):
     BatchNorm computes. ``num_batches_tracked`` counts train-mode calls and
     is read by nothing: the momentum is fixed. A train-mode input with one
     value a channel raises here (``F.batch_norm``), where flax gives the bias.
+    Under a process group of several ranks the train-mode statistics are the
+    global batch's (:func:`global_statistics`, :class:`_GlobalBatchNorm`).
     """
 
     def __init__(self, channels: int):
@@ -153,6 +161,13 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if global_statistics():
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(0.1 * mean.to(self.running_mean.dtype))
+                self.running_var.mul_(0.9).add_(0.1 * var.to(self.running_var.dtype))
+                self.num_batches_tracked.add_(1)
+            return y
         # momentum 1 writes the batch's own statistics into the scratch
         # vectors: the mean, and the variance unbiased, as torch keeps it
         mean = torch.zeros_like(self.running_mean)
@@ -164,6 +179,58 @@ class BatchNorm(nn.BatchNorm2d):
             self.running_var.mul_(0.9).add_(0.1 * ((n - 1) / n) * var)
             self.num_batches_tracked.add_(1)
         return y
+
+
+def global_statistics() -> bool:
+    """Whether a train-mode :class:`BatchNorm` takes its statistics over the
+    batches of every rank: under a process group of more than one rank."""
+    return sharding.world_size() > 1
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalisation over the global batch of a process
+    group: ``(y, mean, var)`` of ``x [N, C, H, W]``.
+
+    Forward: one all-reduce of ``(count, sum x, sum x^2)`` a channel, then
+    ``mean = sum x / n`` and ``var = max(sum x^2 / n - mean^2, 0)``, flax's
+    fast variance (what the JAX step computes over the sharded batch), and
+    ``y = (x - mean) * (rsqrt(var + eps) * weight) + bias``, flax's order.
+    Backward: one all-reduce of ``(sum dy, sum dy * xhat)``, the gradient
+    of every rank's loss through the shared statistics, as
+    ``torch.nn.SyncBatchNorm`` computes it; the weight's and bias's
+    gradients are this rank's sums, which DDP averages with the rest. The
+    statistics are float32 (float64 for a float64 model) and ``y`` takes
+    ``x``'s dtype. Plain torch operations and ``torch.distributed``, so the
+    same code runs on gloo on the CPU and on NCCL on the card."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dtype = torch.promote_types(x.dtype, torch.float32)
+        xf = x.to(dtype)
+        c = x.shape[1]
+        stats = torch.stack([torch.full((c,), x.numel() // c, dtype=dtype, device=x.device),
+                             xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3))])
+        sharding.all_reduce_sum_(stats)
+        n = stats[0]
+        mean = stats[1] / n
+        var = torch.clamp_min(stats[2] / n - mean * mean, 0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean[:, None, None]) * invstd[:, None, None]
+        y = (xf - mean[:, None, None]) * (invstd * weight.to(dtype))[:, None, None] \
+            + bias.to(dtype)[:, None, None]
+        ctx.save_for_backward(xhat, invstd, weight, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, weight, n = ctx.saved_tensors
+        dyf = dy.to(xhat.dtype)
+        local = torch.stack([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        total = sharding.all_reduce_sum_(local.clone())
+        dx = (dyf - (total[0] / n)[:, None, None] - xhat * (total[1] / n)[:, None, None]) \
+            * (invstd * weight.to(xhat.dtype))[:, None, None]
+        return (dx.to(dy.dtype), local[1].to(weight.dtype), local[0].to(weight.dtype), None)
 
 
 class Float32BatchNorm(BatchNorm):

@@ -295,11 +295,26 @@ def apply_params(images: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor,
 
 @torch.no_grad()
 def augment_batch(generator: torch.Generator, images: torch.Tensor, boxes: torch.Tensor,
-                  valid: torch.Tensor, prob: float = 0.6, means=(104.0, 117.0, 123.0)):
+                  valid: torch.Tensor, prob: float = 0.6, means=(104.0, 117.0, 123.0),
+                  shard=(0, 1)):
     """The host recipe on a whole batch on the device: :func:`sample_params`
     from ``generator`` (on ``images``' device), then :func:`apply_params`.
     ``images``: ``[B, H, W, 3]`` float32, mean-subtracted with ``means``
     (``DATASET.PIXEL_MEANS``, as :func:`apply_params` takes them); ``prob``:
-    ``DATASET.PROB``. Nothing here waits for the device."""
-    return apply_params(images, boxes, valid, sample_params(generator, boxes, valid, prob),
-                        means)
+    ``DATASET.PROB``. Nothing here waits for the device.
+
+    ``shard = (rank, world)``: the batch is rows ``[rank * B, (rank + 1) *
+    B)`` of a global batch of ``world * B`` (data parallelism). The draws
+    are the global batch's, from the same generator state on every rank, and
+    this rank applies its rows, so the ranks together augment as one process
+    does the global batch. :func:`sample_params` reads the batch's size
+    alone, so no rank needs another's boxes."""
+    rank, world = shard
+    if world == 1:
+        return apply_params(images, boxes, valid, sample_params(generator, boxes, valid, prob),
+                            means)
+    b = boxes.shape[0]
+    params = sample_params(generator, boxes.new_zeros((world * b,) + boxes.shape[1:]),
+                           valid.new_zeros((world * b,) + valid.shape[1:]), prob)
+    mine = AugParams(*(t[rank * b:(rank + 1) * b] for t in params))
+    return apply_params(images, boxes, valid, mine, means)

@@ -39,7 +39,7 @@ def hard_negative_ranks(loss_c: torch.Tensor) -> torch.Tensor:
     return torch.argsort(loss_idx, dim=1, stable=True)
 
 
-def multibox_loss(
+def multibox_sums(
     loc_pred: torch.Tensor,
     conf_pred: torch.Tensor,
     gt_boxes: torch.Tensor,
@@ -51,7 +51,7 @@ def multibox_loss(
     negpos_ratio: float = 3.0,
     variances=(0.1, 0.2),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Compute ``(loss_loc, loss_conf)`` for a batch.
+    """The MultiBox loss's sums over a batch.
 
     Args:
       loc_pred:  ``[B, K, 4]`` predicted offsets (any float dtype).
@@ -62,7 +62,9 @@ def multibox_loss(
       priors:    ``[K, 4]`` center-form anchors.
 
     Returns:
-      float32 scalars ``(loss_loc, loss_conf)``, each divided by the positives.
+      float32 scalars ``(sum loss_loc, sum loss_conf, positives)``: the two
+      sums over the batch and its positive count, which :func:`multibox_loss`
+      divides by (a data-parallel step divides by the global count).
     """
     conf_pred = conf_pred.float()
     loc_pred = loc_pred.float()
@@ -86,5 +88,14 @@ def multibox_loss(
     ce = -torch.gather(torch.log_softmax(conf_pred, dim=-1), 2, conf_t[..., None])[..., 0]
     loss_conf = torch.sum(ce * selected)
 
-    n = torch.clamp(num_pos.sum().float(), min=1.0)
+    return loss_l, loss_conf, num_pos.sum().float()
+
+
+def multibox_loss(loc_pred, conf_pred, gt_boxes, gt_labels, gt_valid, priors,
+                  **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss_loc, loss_conf)`` of a batch: :func:`multibox_sums` (same
+    arguments), each sum divided by the batch's positive count, at least 1."""
+    loss_l, loss_conf, num_pos = multibox_sums(loc_pred, conf_pred, gt_boxes, gt_labels,
+                                               gt_valid, priors, **kwargs)
+    n = torch.clamp(num_pos, min=1.0)
     return loss_l / n, loss_conf / n

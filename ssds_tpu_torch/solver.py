@@ -31,8 +31,21 @@ step computes in bf16 when ``MODEL.HALF_PRECISION`` is set and
 ``FloatingPointError`` naming the step and the tensor (JAX's
 ``jax_debug_nans``); off, the step adds no host synchronisation.
 
-Differences from the JAX solver: one process (no DDP yet); every head is
-ported (SSD, SSDLite, FSSD, RFB, YOLOv2/v3); no ``visualize_epoch``. After
+Data parallelism (:mod:`ssds_tpu_torch.parallel.sharding`): under a process
+group of ``N`` ranks (``torch.distributed.run``) ``TRAIN.BATCH_SIZE`` is the
+global batch; each rank loads its interleaved share of the train set at
+``batch / N``, trains the model wrapped in ``DistributedDataParallel`` and
+keeps the JAX step's global reductions (BatchNorm statistics, the MultiBox
+normaliser, YOLOv2's seen images, the augmentation's draws), so ``N`` ranks
+step as one process does at the global batch. Rank 0 alone writes
+checkpoints; the printed and written train losses are the ranks' means,
+read where the host reads them anyway. The eval and the test forward each
+rank's contiguous share of the images and merge the detections and loss sums
+over ``allgather_pickled``; rank 0 scores them and every rank returns its
+mAP.
+
+Differences from the JAX solver: every head is ported (SSD, SSDLite, FSSD,
+RFB, YOLOv2/v3); the spatial mesh axis is not (``TPU.MESH.SPATIAL``). After
 a resume the port continues the LR schedule from the restored step, as
 ``ssds_tpu/solver.py:366-367`` intends; the JAX optimizer restarts its
 schedule count at 0 (ROADMAP.md §3).
@@ -52,10 +65,13 @@ from ssds_tpu_torch import checkpoint as ckpt_lib
 from ssds_tpu_torch.data.factory import load_data
 from ssds_tpu_torch.models.builder import create_model, create_priors, init_model, is_yolo
 from ssds_tpu_torch.models.heads.common import finalize
+from ssds_tpu_torch.ops.anchors import num_anchors_per_cell
 from ssds_tpu_torch.ops.augment_device import augment_batch
-from ssds_tpu_torch.ops.losses import multibox_loss
+from ssds_tpu_torch.ops.losses import multibox_loss, multibox_sums
 from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect, detect_decoded
 from ssds_tpu_torch.ops.yolo import yolo_loss, yolo_v2_loss
+from ssds_tpu_torch.parallel import sharding
+from ssds_tpu_torch.utils.visualize import viz_feature_maps, viz_grads, viz_prior_box, viz_samples
 
 # --------------------------------------------------------------------------
 # LR schedule and optimizer (reference configure_lr_scheduler /
@@ -314,17 +330,35 @@ def check_finite(step: int, named: Iterable[Tuple[str, torch.Tensor]]) -> None:
             raise FloatingPointError(f"TPU.DEBUG_NANS: step {step}: {name} is not finite")
 
 
-def detection_loss(model, priors, out, batch, seen_images: float = math.inf):
+def unwrap(model):
+    """The model inside a ``DistributedDataParallel`` wrapper (or ``model``)."""
+    return getattr(model, "module", model)
+
+
+def detection_loss(model, priors, out, batch, seen_images: float = math.inf,
+                   data_parallel: bool = False):
     """``(loss_l, loss_c)`` of the raw outputs ``out`` on a device ``batch``:
     the MultiBox loss against ``priors``, or, for a YOLO model (``priors``
     None), ``yolo_loss`` (v3) or ``yolo_v2_loss`` (v2, whose prior-regression
     warm-up runs while ``seen_images`` < 12800; the default, inf, leaves it
     off, as the JAX package's eval loss does). A YOLO loss decodes against
-    the images' own size, which is the model's input size."""
+    the images' own size, which is the model's input size.
+
+    ``data_parallel`` (a train step of several ranks): the MultiBox sums are
+    divided by the global batch's positive count (one all-reduce) over the
+    world size, since DDP averages the ranks' gradients; the ranks' mean
+    loss and gradient are then the global batch's, as the JAX step's over a
+    sharded batch. A YOLO loss divides by the batch, so the ranks' mean is
+    already the global batch's."""
     boxes, labels, valid = batch["boxes"], batch["labels"], batch["valid"]
+    model = unwrap(model)
     if priors is not None:
         loc, conf = out
-        return multibox_loss(loc, conf, boxes, labels, valid, priors)
+        if not data_parallel:
+            return multibox_loss(loc, conf, boxes, labels, valid, priors)
+        loss_l, loss_c, num_pos = multibox_sums(loc, conf, boxes, labels, valid, priors)
+        n = torch.clamp(sharding.all_reduce_sum_(num_pos), min=1.0) / sharding.world_size()
+        return loss_l / n, loss_c / n
     img_hw = tuple(batch["images"].shape[1:3])
     anchors = model.anchor_tensors(boxes.device)
     if model.version == 2:
@@ -354,11 +388,18 @@ def build_train_step(model, priors, optimizer, lr_schedule, dtype, pixel_means,
     (:func:`detection_loss`). ``device_aug_prob`` > 0 augments the batch on
     the device with that ``PROB`` (:func:`augment_batch`, the pixel means
     ``pixel_means``); ``debug_nans`` raises at a non-finite loss or gradient
-    (:func:`check_finite`) before the update."""
+    (:func:`check_finite`) before the update.
+
+    ``model`` may be a ``DistributedDataParallel`` wrapper: under a process
+    group of several ranks ``batch`` is this rank's share of the global
+    batch, and the step keeps the global batch's reductions (the loss's
+    normaliser, YOLOv2's ``step * global batch``, the augmentation's draws;
+    the BatchNorms' statistics are the layers' own)."""
     device = next(model.parameters()).device
     means = torch.tensor(tuple(pixel_means), dtype=torch.float32, device=device)
     aug_gen = torch.Generator(device=device) if device_aug_prob > 0 else None
-    named = list(model.named_parameters())
+    named = list(unwrap(model).named_parameters())
+    world, rank = sharding.world_size(), sharding.rank()
 
     def train_step(batch, step: int) -> Dict[str, torch.Tensor]:
         model.train()  # BatchNorm on batch statistics, as the JAX step's train=True
@@ -366,11 +407,12 @@ def build_train_step(model, priors, optimizer, lr_schedule, dtype, pixel_means,
         if aug_gen is not None:
             aug_gen.manual_seed(aug_seed(step))
             x, boxes, valid = augment_batch(aug_gen, x, batch["boxes"], batch["valid"],
-                                            device_aug_prob, means)
+                                            device_aug_prob, means, shard=(rank, world))
             batch = dict(batch, boxes=boxes, valid=valid)
         out = forward_input(model, x, dtype)
         loss_l, loss_c = detection_loss(model, priors, out, batch,
-                                        seen_images=step * batch["images"].shape[0])
+                                        seen_images=step * batch["images"].shape[0] * world,
+                                        data_parallel=world > 1)
         loss = loss_l + loss_c
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
@@ -393,20 +435,24 @@ class Solver:
 
     Args:
       cfg: the full config tree.
-      device: where the model trains; ``"cuda"`` raises without a GPU.
-      writer: a summary writer (``add_scalar(tag, value, step)``); when None,
-        ``torch.utils.tensorboard.SummaryWriter`` on ``LOG_DIR`` is made at
-        first use.
+      device: where the model trains; ``"cuda"`` raises without a GPU, and
+        under a process group of several ranks means ``cuda:{LOCAL_RANK}``
+        (:func:`ssds_tpu_torch.parallel.sharding.rank_device`).
+      writer: a summary writer (``add_scalar(tag, value, step)``; and
+        ``add_image`` / ``add_histogram`` for ``visualize_epoch``); when
+        None, ``torch.utils.tensorboard.SummaryWriter`` on ``LOG_DIR`` is made
+        at first use (without the ``tensorboard`` package, a JSON-lines file
+        there).
       seed: seeds the model's random init (before any checkpoint is loaded).
     """
 
     def __init__(self, cfg, device="cuda", writer=None, seed: int = 0):
         self.cfg = cfg
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Solver: device 'cuda' asked for, but no GPU is available")
-        if "visualize" in cfg.PHASE:
-            raise NotImplementedError("PHASE 'visualize' (visualize_epoch) is not ported yet")
+        self.world = sharding.data_parallel_size(cfg.TPU, int(cfg.TRAIN.BATCH_SIZE))
+        self.rank = sharding.rank()
+        self.device = sharding.rank_device(device)
         model, self.feature_maps = create_model(cfg.MODEL)
         self.model = init_model(model, seed=seed, device=self.device)
         self.img_hw = (int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1]))
@@ -435,14 +481,20 @@ class Solver:
         self.step = 0
         self._train_step = None
         self._checkpointer = None
+        self._ddp = None  # the DistributedDataParallel wrapper, under several ranks
 
     # -- data ---------------------------------------------------------------
 
     def get_loader(self, phase: str):
+        """The phase's loader; the train loader is this rank's interleaved
+        share at ``TRAIN.BATCH_SIZE / world`` (``ssds_tpu/solver.py:343-357``)."""
         if phase not in self.loaders:
-            bs = int(self.cfg.TRAIN.BATCH_SIZE if phase == "train" else self.cfg.TEST.BATCH_SIZE)
-            self.loaders[phase] = load_data(self.cfg.DATASET, phase,
-                                            image_size=self.cfg.MODEL.IMAGE_SIZE, batch_size=bs)
+            train = phase == "train"
+            bs = int(self.cfg.TRAIN.BATCH_SIZE if train else self.cfg.TEST.BATCH_SIZE)
+            self.loaders[phase] = load_data(
+                self.cfg.DATASET, phase, image_size=self.cfg.MODEL.IMAGE_SIZE,
+                batch_size=bs // self.world if train else bs,
+                shard_id=self.rank if train else 0, num_shards=self.world if train else 1)
         return self.loaders[phase]
 
     def _upload(self, batch, keys=("images", "boxes", "labels", "valid")):
@@ -483,6 +535,10 @@ class Solver:
         self.model.load_state_dict(sd)
 
     def save(self, epoch: int):
+        """Checkpoint the model (the module inside DDP: no ``module.``
+        prefix), from rank 0 alone."""
+        if self.rank != 0:
+            return
         if self._checkpointer is None:
             self._checkpointer = ckpt_lib.AsyncCheckpointer()
         self._checkpointer.save(self.exp_dir, self.prefix, epoch, self.model.state_dict())
@@ -491,8 +547,8 @@ class Solver:
 
     def make_train_step(self):
         device_aug = bool(self.cfg.DATASET.get("DEVICE_AUG", False))
-        return build_train_step(self.model, self.priors, self.optimizer, self.lr_schedule,
-                                self.compute_dtype, self.cfg.DATASET.PIXEL_MEANS,
+        return build_train_step(self._ddp or self.model, self.priors, self.optimizer,
+                                self.lr_schedule, self.compute_dtype, self.cfg.DATASET.PIXEL_MEANS,
                                 clip=float(self.cfg.TRAIN.OPTIMIZER.get("CLIP_GRADIENT", 0.0) or 0.0),
                                 device_aug_prob=float(self.cfg.DATASET.PROB) if device_aug else 0.0,
                                 debug_nans=bool(self.cfg.TPU.get("DEBUG_NANS", False)))
@@ -528,19 +584,41 @@ class Solver:
     # -- epochs ---------------------------------------------------------------
 
     def _get_writer(self):
+        """The writer given, else TensorBoard's on ``LOG_DIR``, else (no
+        ``tensorboard`` package) :class:`~ssds_tpu_torch.utils.summary.JsonLinesWriter`."""
         if self.writer is None:
-            from torch.utils.tensorboard import SummaryWriter
-
             os.makedirs(self.cfg.LOG_DIR, exist_ok=True)
-            self.writer = SummaryWriter(log_dir=self.cfg.LOG_DIR)
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                from ssds_tpu_torch.utils.summary import JsonLinesWriter
+
+                self.writer = JsonLinesWriter(self.cfg.LOG_DIR)
+                print(f"no tensorboard: summaries go to {self.writer.path}", flush=True)
+            else:
+                self.writer = SummaryWriter(log_dir=self.cfg.LOG_DIR)
             self._own_writer = True
         return self.writer
+
+    def _wrap_ddp(self):
+        """Wrap the model in ``DistributedDataParallel`` (several ranks
+        only; after the optimizer has set which parameters train). Buffers
+        are not broadcast: the BatchNorms' running statistics are global and
+        equal on every rank."""
+        if self.world > 1 and self._ddp is None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            ids = [self.device.index] if self.device.type == "cuda" else None
+            self._ddp = DistributedDataParallel(self.model, device_ids=ids,
+                                                broadcast_buffers=False)
+        return self._ddp
 
     def train_model(self):
         loader = self.get_loader("train")
         steps_per_epoch = len(loader)
         self.restore()
         self.build_state(steps_per_epoch)
+        self._wrap_ddp()
         self._train_step = self.make_train_step()
         writer = self._get_writer()
 
@@ -558,15 +636,24 @@ class Solver:
             scope = self.cfg.TEST.TEST_SCOPE
             if "eval" in self.phases and scope[0] <= epoch <= scope[1]:
                 self.eval_epoch(epoch, writer)
+            if "visualize" in self.phases:
+                self.visualize_epoch(epoch)
             if epoch % int(self.cfg.TRAIN.CHECKPOINTS_EPOCHS) == 0 or epoch == self.max_epochs:
                 self.save(epoch)
         if self._checkpointer is not None:
             self._checkpointer.wait()  # every checkpoint on disk
+        if self.world > 1:
+            torch.distributed.barrier()  # ... before any rank reads one
+
+    def _host_losses(self, metrics) -> Dict[str, float]:
+        """Device loss scalars on the host: their means over the ranks."""
+        keys = list(metrics)
+        return dict(zip(keys, sharding.all_reduce_mean([metrics[k] for k in keys])))
 
     def train_epoch(self, loader, writer=None):
         """One pass over ``loader``; returns the epoch means of every step's
-        losses. They add up on the device; the host reads them at the first
-        and every 10th step (printing) and at the end."""
+        losses (the ranks' means). They add up on the device; the host reads
+        them at the first and every 10th step (printing) and at the end."""
         acc = None
         n = 0
         total = len(loader)
@@ -577,7 +664,7 @@ class Solver:
             acc = metrics if acc is None else {k: acc[k] + v for k, v in metrics.items()}
             n += 1
             if n % 10 == 0 or n == 1:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = self._host_losses(metrics)
                 if writer is not None:
                     writer.add_scalar("iter_loss_loc", m["loss_l"], self.step)
                     writer.add_scalar("iter_loss_conf", m["loss_c"], self.step)
@@ -587,7 +674,7 @@ class Solver:
                           f"loss_c={m['loss_c']:.4f} eta={eta:.0f}s", flush=True)
         if acc is None:
             return {"loss": 0.0, "loss_l": 0.0, "loss_c": 0.0}
-        return {k: float(v) / n for k, v in acc.items()}
+        return {k: v / n for k, v in self._host_losses(acc).items()}
 
     def eval_epoch(self, epoch, writer=None):
         """Loss and mAP over the eval set, from one forward per batch."""
@@ -600,15 +687,18 @@ class Solver:
             writer.add_scalar("Eval/mAP", mAP, epoch)
         return mAP
 
-    def _collect_detections(self, loader, with_loss: bool = False):
+    def _collect_detections(self, loader, offset: int = 0, with_loss: bool = False):
         """The eval forward over ``loader``: ``(results, loss_sums)``, results
         ``{image index: {class: [N, 5] (x1, y1, x2, y2, score) in pixels}}``
         and loss_sums ``(sum loss_l, sum loss_c, batches)`` when
-        ``with_loss``, both from one pass. The next batch's forward is
-        queued before the previous batch's detections are read back."""
+        ``with_loss``, both from one pass. ``offset`` is the dataset index of
+        the loader's first image (a rank's range, :meth:`DetectionLoader.range_view`).
+        The next batch's forward is queued before the previous batch's
+        detections are read back."""
         step = self.make_eval_step() if with_loss else self.make_eval_forward()
         num_classes = self.post_cfg.num_classes
-        n_expected = len(loader.dataset)  # the last batch wraps around: skip the repeats
+        start, end = loader.image_span()
+        n_expected = end - start  # the last batch wraps around: skip the repeats
         loss_acc = []
 
         def forward_batches():
@@ -641,7 +731,7 @@ class Solver:
                         per_cls[c] = np.hstack([rows[keep][:, 1:5] * scale,
                                                 rows[keep][:, 0:1]]).astype(np.float32)
                 if per_cls:
-                    results[img_index] = per_cls
+                    results[offset + img_index] = per_cls
                 img_index += 1
         loss_sums = None
         if with_loss:
@@ -651,18 +741,45 @@ class Solver:
             loss_sums = (sums[0], sums[1], len(loss_acc))
         return results, loss_sums
 
-    def _run_detection_eval(self, loader, with_loss: bool = False):
+    def _run_detection_eval(self, loader, procs=None, pid=None, gather=None,
+                            with_loss: bool = False):
         """mAP over ``loader``'s dataset through its ``evaluate_detections``;
-        ``(mAP, loss_l, loss_c)`` when ``with_loss``."""
+        ``(mAP, loss_l, loss_c)`` when ``with_loss``.
+
+        Several ranks (``ssds_tpu/solver.py:690-731``): each forwards its
+        contiguous image range, and the detections and loss sums merge over
+        ``gather`` (:func:`~ssds_tpu_torch.parallel.sharding.allgather_pickled`).
+        Rank 0 scores the merged detections (the dataset's eval writes its
+        files into ``EXP_DIR``, which the ranks share) and gathers the mAP to
+        every rank. ``procs`` / ``pid`` / ``gather`` default to the process
+        group's and can be injected by tests."""
+        procs = self.world if procs is None else procs
+        pid = self.rank if pid is None else pid
+        gather = gather if gather is not None else sharding.allgather_pickled
         dataset = loader.dataset
         n_images = len(dataset)
         num_classes = self.post_cfg.num_classes
-        dets, loss_sums = self._collect_detections(loader, with_loss=with_loss)
-        all_boxes = [[[] for _ in range(n_images)] for _ in range(num_classes)]
-        for idx, per_cls in dets.items():
-            for c, arr in per_cls.items():
-                all_boxes[c][idx] = arr
-        mAP = dataset.evaluate_detections(all_boxes, self.exp_dir)
+        if procs > 1:
+            start, end = pid * n_images // procs, (pid + 1) * n_images // procs
+            dets, loss_sums = self._collect_detections(loader.range_view(start, end),
+                                                       offset=start, with_loss=with_loss)
+            merged, sums = {}, [0.0, 0.0, 0]
+            for shard_dets, shard_sums in gather((dets, loss_sums)):
+                merged.update(shard_dets)
+                if shard_sums is not None:
+                    sums = [a + b for a, b in zip(sums, shard_sums)]
+            dets, loss_sums = merged, tuple(sums)
+        else:
+            dets, loss_sums = self._collect_detections(loader, with_loss=with_loss)
+        mAP = None
+        if pid == 0:
+            all_boxes = [[[] for _ in range(n_images)] for _ in range(num_classes)]
+            for idx, per_cls in dets.items():
+                for c, arr in per_cls.items():
+                    all_boxes[c][idx] = arr
+            mAP = dataset.evaluate_detections(all_boxes, self.exp_dir)
+        if procs > 1:
+            mAP = gather(mAP)[0]
         if not with_loss:
             return mAP
         n = max(1, loss_sums[2])
@@ -676,6 +793,51 @@ class Solver:
         mAP = self._run_detection_eval(self.get_loader("test"))
         print(f"test: mAP={mAP:.4f}", flush=True)
         return mAP
+
+    def visualize_epoch(self, epoch: int = 0):
+        """Summary images and histograms (reference ``visualize_epoch``,
+        ``ssds_tpu/solver.py:741-777``): the priors (per level, for a head
+        with priors), the first ``visualize`` batch's samples with their
+        boxes, the feature maps of its first image and one histogram per
+        parameter of the loss's gradient on that batch (BatchNorm on its
+        running statistics, as the JAX package's ``train=False``)."""
+        writer = self._get_writer()
+        if self.priors is not None:
+            viz_prior_box(writer, self.priors.cpu().numpy(), self.img_hw, epoch,
+                          feature_maps=self.feature_maps,
+                          anchors_per_cell=num_anchors_per_cell(
+                              tuple(tuple(a) for a in self.cfg.MODEL.ASPECT_RATIOS)))
+        loader = self.get_loader("visualize")
+        viz_samples(writer, loader, epoch)
+        for batch in loader:
+            x = torch.from_numpy(batch["images"][:1]).to(self.device).float() - self.means
+            self.model.eval()
+            with torch.no_grad():
+                feats = self.model(x.permute(0, 3, 1, 2).contiguous(), phase="feature")
+            viz_feature_maps(writer, [f.permute(0, 2, 3, 1).float().cpu().numpy()
+                                      for f in feats], epoch)
+            grads = self._grads_for_batch(batch)
+            viz_grads(writer, {tuple(n.split(".")): g for n, g in grads.items()}, epoch)
+            break
+
+    def _grads_for_batch(self, batch) -> Dict[str, np.ndarray]:
+        """The eval loss's gradient on ``batch`` for every parameter, frozen
+        ones too (as ``jax.grad`` over the JAX package's parameters gives)."""
+        named = list(self.model.named_parameters())
+        trains = [p.requires_grad for _, p in named]
+        self.model.eval()
+        try:
+            for _, p in named:
+                p.requires_grad_(True)
+            dev_batch = self._upload(batch)
+            out = forward_raw(self.model, dev_batch["images"], self.means, self.compute_dtype)
+            loss_l, loss_c = detection_loss(self.model, self.priors, out, dev_batch)
+            grads = torch.autograd.grad(loss_l + loss_c, [p for _, p in named], allow_unused=True)
+        finally:
+            for (_, p), t in zip(named, trains):
+                p.requires_grad_(t)
+        return {n: (torch.zeros_like(p) if g is None else g).float().cpu().numpy()
+                for (n, p), g in zip(named, grads)}
 
     def close(self):
         """Wait for the checkpoint writes, then end the loaders' worker

@@ -4,6 +4,12 @@ The port's counterpart of the repository's ``test.py`` (reference
 ``python test.py --cfg <yml>``): the newest checkpoint in ``EXP_DIR`` (or
 ``RESUME_CHECKPOINT``) evaluated over ``TEST_SETS``, mAP printed, on
 ``--device`` (default the GPU; ``cpu`` for a run without one).
+
+Under ``python -m torch.distributed.run --nproc_per_node N -m
+ssds_tpu_torch.test --cfg <yml>`` each rank joins the process group (NCCL
+on the cards, gloo with ``--device cpu``), forwards its share of the test
+images and prints the merged mAP (:mod:`ssds_tpu_torch.parallel.sharding`);
+no flag is needed.
 """
 
 from __future__ import annotations
@@ -22,9 +28,14 @@ def parse_args(argv=None):
 def test(argv=None):
     args = parse_args(argv)
     from ssds_tpu_torch.config import cfg_from_file
+    from ssds_tpu_torch.parallel import sharding
     from ssds_tpu_torch.solver import test_model
 
-    test_model(cfg_from_file(args.config_file), device=args.device)
+    sharding.initialize_distributed(device=args.device)
+    try:
+        test_model(cfg_from_file(args.config_file), device=args.device)
+    finally:
+        sharding.destroy_distributed()
 
 
 if __name__ == "__main__":

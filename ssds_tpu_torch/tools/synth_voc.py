@@ -7,10 +7,18 @@ and :func:`in_memory_voc` gives a :class:`~ssds_tpu_torch.data.voc.VOCDetection`
 whose ``_read_image`` draws each image again from ``(seed, index)``: a dark
 noisy background with 1-3 filled boxes, each box's colour that of its class.
 Everything after the image read is the real VOC code path.
+
+    python -m ssds_tpu_torch.tools.synth_voc --seed S --size N {train,test} --cfg CFG [...]
+
+runs the port's train or test CLI (``ssds_tpu_torch.train`` / ``.test``,
+the arguments after the command passed on) with ``dataset_map['voc']`` set
+to :func:`in_memory_voc`, over a tree that :func:`write_voc` wrote with the
+same seed and size; under ``torch.distributed.run`` each rank does so.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import xml.etree.ElementTree as ET
 
@@ -74,3 +82,21 @@ def in_memory_voc(seed: int, size: int = 300):
             return sample(seed, int(img_id[1]), size)[0]
 
     return InMemoryVOC
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="the train or test CLI over a synthetic VOC "
+                                                 "tree whose images are drawn in memory")
+    parser.add_argument("--seed", type=int, required=True, help="write_voc's seed")
+    parser.add_argument("--size", type=int, default=300, help="write_voc's image size")
+    parser.add_argument("cli", choices=["train", "test"])
+    args, rest = parser.parse_known_args(argv)
+    from ssds_tpu_torch import test, train
+    from ssds_tpu_torch.data import factory
+
+    factory.dataset_map["voc"] = in_memory_voc(args.seed, args.size)
+    (train.train if args.cli == "train" else test.test)(rest)
+
+
+if __name__ == "__main__":
+    main()

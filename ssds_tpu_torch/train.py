@@ -4,6 +4,11 @@ The port's counterpart of the repository's ``train.py`` (reference
 ``python train.py --cfg <yml>``): the config file merged over the defaults,
 then :func:`ssds_tpu_torch.solver.train_model` on ``--device`` (default the
 GPU; ``cpu`` for a run without one).
+
+Under ``python -m torch.distributed.run --nproc_per_node N -m
+ssds_tpu_torch.train --cfg <yml>`` each rank joins the process group
+(NCCL on the cards, gloo with ``--device cpu``) and trains its share of the
+global batch (:mod:`ssds_tpu_torch.parallel.sharding`); no flag is needed.
 """
 
 from __future__ import annotations
@@ -22,9 +27,14 @@ def parse_args(argv=None):
 def train(argv=None):
     args = parse_args(argv)
     from ssds_tpu_torch.config import cfg_from_file
+    from ssds_tpu_torch.parallel import sharding
     from ssds_tpu_torch.solver import train_model
 
-    train_model(cfg_from_file(args.config_file), device=args.device)
+    sharding.initialize_distributed(device=args.device)
+    try:
+        train_model(cfg_from_file(args.config_file), device=args.device)
+    finally:
+        sharding.destroy_distributed()
 
 
 if __name__ == "__main__":

@@ -934,3 +934,80 @@ def test_augment_batch_on_the_card_equals_cpu(cuda):
     gen = torch.Generator(device=cuda).manual_seed(5)
     out = ad.augment_batch(gen, imgs.to(cuda), boxes.to(cuda), valid.to(cuda), 0.6)
     assert all(t.device.type == "cuda" for t in out) and torch.isfinite(out[0]).all()
+
+
+# -- data parallelism and the moved export ------------------------------------
+
+
+def test_two_gloo_ranks_on_card_zero_equal_one_rank(cuda, tmp_path):
+    """Two SSDLite-MobileNetV2 float64 steps (64 px, the narrow model of
+    ``tests/test_torch_port_lite_train.py``, seeded random weights) at a
+    global batch of 4: two gloo ranks sharing card 0
+    (``tests/torch_port_ddp_worker.py``) against one rank on the same card,
+    within ``tests/test_torch_port_ddp.py``'s bounds; the running statistics
+    as ``running_stats_err`` measures them (the seeded init's running means
+    are 0, and a BatchNorm fed by another moves its mean by rounding only)."""
+    from ssds_tpu_torch.config import ssd_lite_mobilenetv2_config
+    from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
+    from torch_port_ddp_worker import collect, errors, launch, running_stats_err
+
+    cfg = ssd_lite_mobilenetv2_config()
+    cfg.MODEL.update(NETS="mobilenet_v2_025", IMAGE_SIZE=[64, 64],
+                     FEATURE_LAYER=[[13, 18, "S"], [96, 1280, 256]],
+                     ASPECT_RATIOS=[[2, 3]] * 3, SIZES=[0.2, 0.4, 0.6, 0.8])
+    model, fmaps = create_model(cfg.MODEL)
+    model = init_model(model, seed=11)
+    tc = cfg.TRAIN
+    tc.OPTIMIZER.update(LEARNING_RATE=1e-3, WEIGHT_DECAY=4e-5)
+    tc.LR_SCHEDULER.update(SCHEDULER="step", STEPS=[1], GAMMA=0.5, WARM_UP_EPOCHS=0)
+    rng = np.random.default_rng(0)
+    xy, wh = rng.uniform(0, 0.6, (4, 4, 2)), rng.uniform(0.15, 0.4, (4, 4, 2))
+    valid = np.arange(4)[None, :] < np.array([[3], [1], [4], [2]])
+    boxes = np.where(valid[..., None], np.concatenate([xy, xy + wh], -1), 0).astype(np.float32)
+    batch = {"images": rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8), "boxes": boxes,
+             "labels": rng.integers(0, 20, (4, 4)).astype(np.int32), "valid": valid}
+    run = {"lite": dict(model=cfg.MODEL, train_cfg=tc, state_dict=model.state_dict(),
+                        priors=create_priors(cfg.MODEL, fmaps), batch=batch, steps=2,
+                        means=(104, 117, 123))}
+    started = [launch(str(tmp_path), "two", run, 2, device="cuda:0", backend="gloo"),
+               launch(str(tmp_path), "one", run, 1, device="cuda:0", backend="gloo")]
+    two, one = (collect(*s) for s in started)
+    got = [row[:2] + (running_stats_err(g[2], w[2]),) for row, g, w in zip(
+        errors(two[0]["lite"]["steps"], one[0]["lite"]["steps"]),
+        two[0]["lite"]["steps"][1:], one[0]["lite"]["steps"][1:])]
+    print(f"2 gloo ranks on card 0 against 1 rank: {got}")
+    assert all(e < lim for row in got for e, lim in zip(row, (1e-6, 2e-5, 1e-6))), got
+    a, b = (r["lite"]["steps"][-1][2] for r in two)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_export_moved_from_the_card_to_the_cpu(cuda, tmp_path):
+    """A small SSD-VGG16 (64 px, bf16) exported on the card for ``("cuda",
+    "cpu")`` and loaded with ``device="cpu"``: nothing of it left on the
+    card, and its rows those of an in-process CPU detector on the same
+    weights (unpruned: a symbolic batch takes no prune)."""
+    import dataclasses
+
+    from ssds_tpu_torch.detector import ObjectDetector, Predict
+    from ssds_tpu_torch.export import _devices_in, export_detector, load_exported
+
+    cfg = default_config()
+    cfg.MODEL.IMAGE_SIZE = [64, 64]
+    cfg.MODEL.FEATURE_LAYER = [[22, 34, "S"], [512, 1024, 512]]
+    cfg.MODEL.ASPECT_RATIOS = [[2], [2, 3], [2, 3]]
+    out = export_detector(ObjectDetector(cfg, device=cuda), str(tmp_path / "served"),
+                          platforms=("cuda", "cpu"))
+    predict, meta = load_exported(out, device="cpu")
+    assert meta["device"] == "cpu" and meta["platforms"] == ["cuda", "cpu"]
+    cpu = ObjectDetector(cfg, device="cpu")
+    unpruned = Predict(cpu.model, cpu.means, cpu.priors,
+                       dataclasses.replace(cpu.post, pre_nms_top_n=0), cpu.dtype)
+    for b in (1, 5):
+        x = torch.from_numpy(np.random.default_rng(b).integers(0, 256, (b, 64, 64, 3),
+                                                               dtype=np.uint8))
+        with torch.no_grad():
+            assert torch.equal(predict(x), unpruned(x)), b
+    program = torch.export.load(os.path.join(out, "predict.pt2"))
+    from ssds_tpu_torch.export import move_program
+
+    assert _devices_in(move_program(program, "cpu")) == {torch.device("cpu")}

@@ -19,6 +19,15 @@ prune, as eager serving does) and ``export.json``; the loader and the
 export CLI in fresh processes, the loader importing no model module; the
 NMS operator's fake implementation; and the eager path calling the wrapper
 while only an export traces the operator, with the same rows either way.
+
+Moving and sharding (``platforms``, ``load_exported(device=)``,
+``load_exported_sharded``): ``platforms`` is recorded in ``export.json`` and
+checked; a CPU program moved to ``meta`` keeps no tensor and no node on the
+CPU; a program loaded with ``device="cpu"`` serves the in-process rows; and
+``load_exported_sharded`` over ``["cpu", "cpu"]`` serves the single
+program's rows bit for bit at batches 3 and 4 (split 1 + 2 and 2 + 2), for
+the float program and an int8 one. The move from the card to the CPU is a
+card test (``tests/test_torch_port_cuda.py``).
 """
 
 import dataclasses
@@ -39,7 +48,13 @@ from ssds_tpu.export import export_detector as jax_export_detector
 from ssds_tpu.export import load_exported as jax_load_exported
 from ssds_tpu_torch.config import default_config
 from ssds_tpu_torch.detector import ObjectDetector, Predict
-from ssds_tpu_torch.export import export_detector, load_exported
+from ssds_tpu_torch.export import (
+    _devices_in,
+    export_detector,
+    load_exported,
+    load_exported_sharded,
+    move_program,
+)
 from ssds_tpu_torch.ops import postprocess
 from ssds_tpu_torch.ops.cuda import nms as cuda_nms
 from ssds_tpu_torch.weights import state_dict_from_jax
@@ -49,7 +64,8 @@ from test_torch_port_mobilenet import one_torch_thread  # noqa: F401
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
 BATCHES = (1, 3, 5)
-KEYS = {"ssds", "nets", "image_size", "num_classes", "batch", "device", "input", "output"}
+KEYS = {"ssds", "nets", "image_size", "num_classes", "batch", "device", "platforms", "input",
+        "output"}
 
 
 def _ssd_lite(cfg):
@@ -256,3 +272,61 @@ def test_eager_detect_calls_the_wrapper_and_export_traces_the_op(pairs):
     program = torch.export.export(det.predictor, (x,))
     targets = {str(n.target) for n in program.graph.nodes if n.op == "call_function"}
     assert "ssds_tpu_torch.nms_mask.default" in targets
+
+
+# -- platforms, moving and sharding -------------------------------------------
+
+
+def test_platforms_are_recorded_and_checked(pairs, tmp_path):
+    det = pairs["ssd_lite"][1]
+    out = export_detector(det, str(tmp_path / "both"), platforms=("cuda", "cpu"))
+    with open(os.path.join(out, "export.json")) as f:
+        assert json.load(f)["platforms"] == ["cuda", "cpu"]
+    _, meta = load_exported(export_detector(det, str(tmp_path / "default")))
+    assert meta["platforms"] == ["cpu"]
+    with pytest.raises(ValueError, match="platforms"):
+        export_detector(det, str(tmp_path / "bad"), platforms=("tpu",))
+    with pytest.raises(ValueError, match="exported for"):
+        load_exported(str(tmp_path / "default"), device="meta")
+
+
+@pytest.mark.parametrize("name", ["ssd_lite", "yolo_v3"])
+def test_a_moved_program_keeps_nothing_on_the_old_device(pairs, name, tmp_path):
+    det = pairs[name][1]
+    out = export_detector(det, str(tmp_path / "served"))
+    program = torch.export.load(os.path.join(out, "predict.pt2"))
+    assert _devices_in(program) == {torch.device("cpu")}
+    # the trace baked devices into nodes (arange, full, to) as well as the weights
+    baked = [n for n in program.graph.nodes if "device" in n.kwargs]
+    assert baked
+    move_program(program, "meta")
+    assert _devices_in(program) == {torch.device("meta")}
+    assert all(torch.device(n.kwargs["device"]) == torch.device("meta") for n in baked)
+    predict, meta = load_exported(out, device="cpu")
+    x = torch.from_numpy(_images(4, 3, det))
+    with torch.no_grad():
+        assert torch.equal(predict(x), _unpruned(det)(x))
+    assert meta["device"] == "cpu"
+
+
+def _int8_detector():
+    det = ObjectDetector(_ssd_lite(default_config()), device="cpu")
+    det.quantize_int8()
+    return det
+
+
+@pytest.mark.parametrize("kind", ["float", "int8"])
+def test_sharded_rows_equal_one_program(pairs, kind, tmp_path):
+    det = pairs["ssd_lite"][1] if kind == "float" else _int8_detector()
+    out = export_detector(det, str(tmp_path / kind))
+    single, _ = load_exported(out)
+    sharded, meta = load_exported_sharded(out, ["cpu", "cpu"])
+    assert meta["devices"] == ["cpu", "cpu"] and meta["device"] == "cpu"
+    for b in (3, 4):
+        x = torch.from_numpy(_images(10 + b, b, det))
+        want = single(x)
+        assert torch.equal(sharded(x), want), (kind, b)
+    assert torch.equal(sharded(x[:1]), single(x[:1]))  # fewer images than devices
+    fixed = export_detector(det, str(tmp_path / "fixed"), batch=4)
+    with pytest.raises(ValueError, match="symbolic"):
+        load_exported_sharded(fixed, ["cpu", "cpu"])

@@ -55,7 +55,10 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.models.backbones.resnet", "ssds_tpu_torch.export",
                    "ssds_tpu_torch.quant", "ssds_tpu_torch.ops.quant",
                    "ssds_tpu_torch.ops.cuda.int8_conv", "ssds_tpu_torch.ops.augment_device",
-                   "ssds_tpu_torch.tools.int8_bench"):
+                   "ssds_tpu_torch.tools.int8_bench", "ssds_tpu_torch.parallel.sharding",
+                   "ssds_tpu_torch.utils.profiler", "ssds_tpu_torch.utils.timer",
+                   "ssds_tpu_torch.utils.visualize", "ssds_tpu_torch.utils.summary",
+                   "ssds_tpu_torch.demo"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,
@@ -89,7 +92,8 @@ def _imports_in_functions(path, module):
 
 def test_only_the_image_read_hooks_import_cv2_and_only_cfg_loading_imports_yaml():
     """OpenCV only inside the VOC and COCO datasets' ``_read_image`` (JPEG
-    decoding); PyYAML only inside ``cfg_from_file`` / ``cfg_from_list``; the
+    decoding) and the demo's ``_cv2`` (its image, video and camera modes);
+    PyYAML only inside ``cfg_from_file`` / ``cfg_from_list``; the
     augmentation and the detector do not name OpenCV at all."""
     sources = sorted(glob.glob(os.path.join(REPO, "ssds_tpu_torch", "**", "*.py"), recursive=True))
     sources.append(os.path.join(REPO, "chip_smoke.py"))
@@ -99,7 +103,8 @@ def test_only_the_image_read_hooks_import_cv2_and_only_cfg_loading_imports_yaml(
         cv2_sites += [(rel, func) for func, _ in _imports_in_functions(path, "cv2")]
         yaml_sites += [(rel, func) for func, _ in _imports_in_functions(path, "yaml")]
     assert sorted(cv2_sites) == [("ssds_tpu_torch/data/coco.py", "_read_image"),
-                                 ("ssds_tpu_torch/data/voc.py", "_read_image")]
+                                 ("ssds_tpu_torch/data/voc.py", "_read_image"),
+                                 ("ssds_tpu_torch/demo.py", "_cv2")]
     assert sorted(yaml_sites) == [("ssds_tpu_torch/config.py", "cfg_from_file"),
                                   ("ssds_tpu_torch/config.py", "cfg_from_list")]
     for rel in ("ssds_tpu_torch/data/augment.py", "ssds_tpu_torch/detector.py"):

@@ -37,6 +37,7 @@ from ssds_tpu_torch.models.layers import BatchNorm
 from ssds_tpu_torch.solver import build_train_step, configure_lr_scheduler, configure_optimizer
 from ssds_tpu_torch.weights import port_name
 from test_torch_port_mobilenet import lite_pair, one_torch_thread  # noqa: F401
+from torch_port_ddp_worker import errors
 
 NET, IMAGE = "mobilenet_v2_025", 64
 MODEL = dict(FEATURE_LAYER=[[13, 18, "S"], [96, 1280, 256]], ASPECT_RATIOS=[[2, 3]] * 3)
@@ -162,27 +163,6 @@ def port_steps(dtype_name, seed=11, frozen=False, batch=None):
         m = step(batch, i)
         out.append((float(m["loss_l"]), float(m["loss_c"]), snapshot()))
     return out
-
-
-def _values(sd):
-    return {k for k in sd if not k.endswith("num_batches_tracked")}
-
-
-def errors(got, want):
-    """Per step: ``(loss rel. error, largest update error over the largest
-    update, largest statistic error over that statistic's largest value)``."""
-    start = want[0][2]
-    rows = []
-    for (gl, gc, gsd), (wl, wc, wsd) in zip(got[1:], want[1:]):
-        assert _values(gsd) == _values(wsd)
-        loss = max(abs(gl - wl) / abs(wl), abs(gc - wc) / abs(wc))
-        params = [n for n in wsd if n.endswith(("weight", "bias"))]
-        umax = max(float((wsd[n] - start[n]).abs().max()) for n in params)
-        upd = max(float((gsd[n] - wsd[n]).abs().max()) for n in params) / umax
-        stats = [n for n in wsd if n.endswith(("running_mean", "running_var"))]
-        stat = max(float((gsd[n] - wsd[n]).abs().max() / wsd[n].abs().max()) for n in stats)
-        rows.append((loss, upd, stat))
-    return rows
 
 
 def test_two_lite_train_steps_equal_jax_in_float64():
