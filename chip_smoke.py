@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8, device-augmentation, data-parallel and observability paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8, device-augmentation, data-parallel, observability and spatial paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -203,17 +203,35 @@ Phases, each of which raises on failure (the script then exits non-zero):
    among them; ``profiler.timed`` within 10 % of CUDA events over 5 train
    steps; ``Solver.visualize_epoch`` through a recording writer: the prior
    images (one a level), 8 samples, each level's feature-map grid and
-   heatmap, and one gradient histogram a parameter.
+   heatmap, and one gradient histogram a parameter;
+18. the spatial axis (``check_spatial``; ``TPU.MESH.SPATIAL: 2``, each of 2
+   ranks a band of 150 image rows; two gloo ranks on card 0, or one NCCL
+   rank a card where there are two or more): a. one float64 step (cuDNN
+   float64) of SSD300-VGG16 (seeded weights, 8732 priors, batch 2) and of
+   SSDLite-MobileNetV2-300 (its 60 BatchNorms over the bands, batch 4), the
+   ranks against one rank on the same card (``tests/torch_port_ddp_worker.py``):
+   losses within rtol 1e-6, every update within 1e-5 of the largest, every
+   running statistic within 1e-9, the ranks' states equal; b. the bf16
+   SSD300-VGG16 recipe (batch 32) through ``Solver.train_model`` for one
+   epoch on the 2 ranks (``--lifecycle``): losses finite, the state moved
+   (the first conv's weight among it) and equal on the ranks, one manifest
+   line, the same test mAP
+   on both ranks, the halo and gather transfers of a step; a 1-process
+   ``ObjectDetector`` serves the checkpoint with rank 0's weights; c. one
+   process on the same recipe: the train step's time and
+   ``torch.cuda.max_memory_allocated`` with and without ``TPU.REMAT``, beside
+   the ranks' step (read with phase 16's caveat: gloo ranks time-share one
+   card and stage every transfer through the host).
 
 Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
 ``{"coco": {...}}``, ``{"heads": {"fssd": {...}, "rfb": {...}}}``,
 ``{"yolo": {"yolo_v3": {...}, "yolo_v2": {...}}}``, ``{"zoo": {"resnet50":
 {...}, "ssd512": {...}}}`` and ``{"export": {...}}``, ``{"int8": {...}}``,
-``{"device_aug": {...}}``, ``{"ddp": {...}}`` and ``{"observability":
-{...}, "export_moved_sharded": {...}}``, then
+``{"device_aug": {...}}``, ``{"ddp": {...}}``, ``{"observability":
+{...}, "export_moved_sharded": {...}}`` and ``{"spatial": {...}}``, then
 ``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4, 9, 10,
 11, 12, 13's and 17's serving, ``launches_by_path`` every path, phase 16's
-ranks' eval too; ``int8_conv`` and
+ranks' eval and phase 18's ranks' test too; ``int8_conv`` and
 ``quantize_act`` count phase 14's serving, their times summed over its shapes
 at batch 32), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
@@ -341,6 +359,11 @@ AUG_STAT_IMAGES = 128
 DDP_EPOCHS, DDP_F64_BATCH, DDP_F64_LIMITS, DDP_MAP_TOL = 3, 8, (1e-6, 1e-5, 1e-9), 1e-3
 # phase 17: profiler.timed against CUDA events
 TIMED_RTOL = 0.1
+# phase 18: the spatial axis (1 x 2); the float64 steps' batches (SSD300-VGG16,
+# and SSDLite-MobileNetV2-300 for BatchNorm statistics over bands) and bounds,
+# 2 ranks against 1 (as phase 16's); the bf16 recipe's epochs
+SPATIAL_F64_BATCH, SPATIAL_LITE_F64_BATCH, SPATIAL_F64_LIMITS = 2, 4, (1e-6, 1e-5, 1e-9)
+SPATIAL_EPOCHS = 1
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -1992,6 +2015,170 @@ def check_ddp(seed, dev, card, log):
     return out
 
 
+def check_spatial(seed, dev, card, log):
+    """Phase 18: SSD300-VGG16 on the spatial axis, 1 x 2 (see the docstring)."""
+    from ssds_tpu_torch.checkpoint import find_previous
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.data.factory import load_data
+    from ssds_tpu_torch.detector import ObjectDetector
+    from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
+    from ssds_tpu_torch.solver import Solver
+    from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
+
+    worker = ddp_worker()
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    ranks, sp_dev, backend = (2, "cuda", "nccl") if count > 1 else (2, DEVICE, "gloo")
+    out = {"card": card, "ranks": ranks, "backend": backend, "device": sp_dev}
+    log(f"phase 18: the spatial axis, 1 x {ranks}, {backend} ranks on "
+        f"{'one card each' if count > 1 else 'card 0'}")
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
+        root = os.path.join(tmp, "VOCdevkit")
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
+
+        # -- 18a: one float64 step on 2 bands against one process
+        runs = {}
+        for name, cfg, batch_size in (
+                ("vgg300", training_config(root, os.path.join(tmp, "f64")), SPATIAL_F64_BATCH),
+                ("lite300", lite_config(root, os.path.join(tmp, "f64l")), SPATIAL_LITE_F64_BATCH)):
+            model, fmaps = create_model(cfg.MODEL)
+            loader = load_data(cfg.DATASET, "train", image_size=cfg.MODEL.IMAGE_SIZE,
+                               batch_size=batch_size)
+            batch = next(iter(loader))
+            loader.close()
+            runs[name] = dict(model=cfg.MODEL, train_cfg=cfg.TRAIN,
+                              state_dict=init_model(model, seed=seed).state_dict(),
+                              priors=create_priors(cfg.MODEL, fmaps), steps=1,
+                              batch={k: batch[k] for k in ("images", "boxes", "labels", "valid")},
+                              means=tuple(cfg.DATASET.PIXEL_MEANS))
+        t0 = time.perf_counter()
+        banded = {k: dict(r, spatial=ranks) for k, r in runs.items()}
+        started = [worker.launch(tmp, "sp_two", banded, ranks, device=sp_dev, backend=backend),
+                   worker.launch(tmp, "sp_one", runs, 1, device=DEVICE, backend="gloo")]
+        two, one = (worker.collect(*st) for st in started)
+        out["f64_s"] = time.perf_counter() - t0
+        for name in runs:
+            got, want = two[0][name]["steps"], one[0][name]["steps"]
+            loss, upd, _ = worker.errors(got, want)[0]
+            stat = worker.running_stats_err(got[-1][2], want[-1][2])
+            same = all(torch.equal(got[-1][2][k], r[name]["steps"][-1][2][k])
+                       for r in two[1:] for k in got[-1][2])
+            out[f"f64_step_{name}"] = {
+                "loss_rel_err": loss, "update_err_over_max_update": upd, "stats_rel_err": stat,
+                "ranks_equal": same, "transfers_rank0": two[0][name]["transfers"]}
+            log(f"18a: one float64 step (cuDNN float64) of {name} at batch "
+                f"{runs[name]['batch']['images'].shape[0]}, 1 x {ranks} {backend} ranks against "
+                f"1 rank on {DEVICE}: losses rel {loss:.2e} (bound {SPATIAL_F64_LIMITS[0]:g}), "
+                f"largest update error over the largest update {upd:.2e} (bound "
+                f"{SPATIAL_F64_LIMITS[1]:g}), running statistics {stat:.2e} (bound "
+                f"{SPATIAL_F64_LIMITS[2]:g}); ranks' states equal: {same}; rank 0's transfers "
+                f"{two[0][name]['transfers']}")
+            if not same or not all(e < lim for e, lim in
+                                   zip((loss, upd, stat), SPATIAL_F64_LIMITS)):
+                raise AssertionError(f"18a: the 1 x {ranks} float64 step of {name} is not the "
+                                     "1-rank step")
+
+        # -- 18b: the bf16 recipe on 2 bands through the Solver; the checkpoint served
+        cfg = training_config(root, os.path.join(tmp, "exp_sp"))
+        cfg.TRAIN.update(MAX_EPOCHS=SPATIAL_EPOCHS, CHECKPOINTS_EPOCHS=1)
+        cfg.PHASE = ["train"]
+        cfg.TPU.MESH.SPATIAL = ranks
+        cfg_path = os.path.join(tmp, "spatial.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        prefix = os.path.join(tmp, "rank")
+        t0 = time.perf_counter()
+        proc = ddp_launch([os.path.join(REPO, "tests", "torch_port_ddp_worker.py"),
+                           "--lifecycle", cfg_path, "--out", prefix, "--device", sp_dev,
+                           "--backend", backend, "--synthetic-voc", f"{seed},300"], ranks)
+        out["lifecycle_s"] = time.perf_counter() - t0
+        if proc.returncode != 0 or proc.stdout.count("DDP_WORKER_OK") != ranks:
+            raise AssertionError(f"18b: the 1 x {ranks} lifecycle failed (rc {proc.returncode})"
+                                 f"\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        reports, states = [], []
+        for r in range(ranks):
+            with open(f"{prefix}.{r}.json") as f:
+                reports.append(json.load(f))
+            states.append(torch.load(f"{prefix}.{r}.pt", map_location="cpu"))
+        sc = reports[0]["scalars"]
+        values = [v for rep in reports for vals in rep["scalars"].values() for _, v in vals]
+        equal = all(torch.equal(st[k], states[0][k]) for st in states[1:] for k in states[0])
+        start = init_model(create_model(cfg.MODEL)[0], seed=0).state_dict()
+        still = [k for k in start if torch.equal(states[0][k], start[k])]
+        moved = len(start) - len(still)
+        manifest = find_previous(cfg.EXP_DIR)
+        rep0 = reports[0]
+        out.update(epoch_loss=[l + c for (_, l), (_, c) in zip(sc["loss_loc"], sc["loss_conf"])],
+                   test_map=[rep["test_map"] for rep in reports], rank_states_equal=equal,
+                   tensors_moved=moved, tensors=len(start),
+                   manifest_epochs=manifest and manifest[0],
+                   nms_launches_ranks=sum(rep["nms_launches"] for rep in reports),
+                   train_step_ms_ranks=rep0["train_step_ms"],
+                   transfers_per_step={k: rep0[k] for k in ("halo_messages", "halo_bytes",
+                                                            "gather_messages", "gather_bytes")},
+                   allreduce_grads_ms=rep0.get("allreduce_grads_ms"))
+        log(f"18b: SSD300-VGG16 bf16 at batch {cfg.TRAIN.BATCH_SIZE} on 1 x {ranks} {backend} "
+            f"ranks, {SPATIAL_EPOCHS} epoch(s) in {out['lifecycle_s']:.1f} s: epoch losses "
+            f"{out['epoch_loss']}, test mAP by rank {out['test_map']}, manifest epochs "
+            f"{out['manifest_epochs']}, {moved}/{len(start)} tensors moved (not {still}), ranks' "
+            f"states equal: "
+            f"{equal} (SSD300-VGG16 has no BatchNorm; 18a holds SSDLite's statistics); a step's "
+            f"transfers from rank 0: {out['transfers_per_step']}")
+        if not all(np.isfinite(values)) or not equal or "base.0.weight" in still \
+                or out["manifest_epochs"] != list(range(1, SPATIAL_EPOCHS + 1)) \
+                or len(set(out["test_map"])) != 1 \
+                or (torch.device(sp_dev).type == "cuda" and out["nms_launches_ranks"] <= 0):
+            raise AssertionError(f"18b: losses finite {all(np.isfinite(values))}, states equal "
+                                 f"{equal}, moved {moved}/{len(start)}, manifest "
+                                 f"{out['manifest_epochs']}, test mAP {out['test_map']}, NMS "
+                                 f"kernel launches {out['nms_launches_ranks']}")
+        # one process serves the checkpoint: its weights are rank 0's
+        dcfg = copy.deepcopy(cfg)
+        dcfg.TPU.MESH.SPATIAL = 1
+        dcfg.RESUME_CHECKPOINT = manifest[1][-1]
+        det = ObjectDetector(dcfg, device=dev)
+        imgs = list(np.random.default_rng(seed).integers(0, 256, (4, 300, 300, 3), np.uint8))
+        rows = det.predict_batch(imgs, threshold=0.01)
+        served = det.model.state_dict()
+        same_weights = all(torch.equal(served[k].cpu(), states[0][k].to(served[k].dtype))
+                           for k in states[0])  # bf16 serving casts the convs once
+        out.update(served_images=len(rows), served_weights_equal=same_weights)
+        log(f"18b: a 1-process ObjectDetector on the checkpoint serves {len(rows)} images; its "
+            f"weights are rank 0's (in its serving dtype): {same_weights}")
+        if not same_weights or len(rows) != len(imgs):
+            raise AssertionError("18b: the checkpoint of the spatial run does not serve")
+
+        # -- 18c: one process, the same recipe: the step's time, with and without REMAT
+        one = Solver(dcfg, device=dev, writer=ScalarWriter(), seed=seed)
+        try:
+            loader = one.get_loader("train")
+            one.build_state(len(loader))
+            for remat in (False, True):
+                one.cfg.TPU.REMAT = remat
+                one._train_step = one.make_train_step()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resting = torch.cuda.memory_allocated()
+                ms = train_step_ms(one)
+                key = "remat" if remat else "plain"
+                out[f"train_step_ms_one_{key}"] = ms
+                out[f"peak_mb_{key}"] = torch.cuda.max_memory_allocated() / 2**20
+                out[f"peak_above_resting_mb_{key}"] = (torch.cuda.max_memory_allocated()
+                                                       - resting) / 2**20
+        finally:
+            one.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"18c ({card}): SSD300-VGG16 bf16 train step at batch {cfg.TRAIN.BATCH_SIZE}: 1 x {ranks} "
+        f"{backend} ranks {out['train_step_ms_ranks']:.2f} ms (gloo stages every halo through "
+        f"the host; the ranks time-share the card), 1 process {out['train_step_ms_one_plain']:.2f} "
+        f"ms; TPU.REMAT in 1 process: {out['train_step_ms_one_remat']:.2f} ms, peak "
+        f"{out['peak_mb_remat']:.0f} MiB ({out['peak_above_resting_mb_remat']:.0f} above the "
+        f"resting state) against {out['peak_mb_plain']:.0f} MiB "
+        f"({out['peak_above_resting_mb_plain']:.0f}) without; phase 18 {out['phase_s']:.1f} s")
+    return out
+
+
 def check_observability(seed, dev, card, log):
     """Phase 17: ``utils.profiler`` and ``Solver.visualize_epoch`` on SSD300-VGG16."""
     from ssds_tpu_torch.data import factory
@@ -2287,6 +2474,10 @@ def main(argv=None):
     # -- 17. observability: traces, timed, visualize_epoch ---------------------------
     observability = check_observability(args.seed, dev, card, log)
     report["observability"] = observability
+
+    # -- 18. the spatial axis: SSD300-VGG16 on 1 x 2 bands, and TPU.REMAT --------------
+    spatial_axis = check_spatial(args.seed, dev, card, log)
+    report["spatial"] = spatial_axis
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -2360,6 +2551,13 @@ def main(argv=None):
         "export_moved_sharded": {k: export[k] for k in (
             "moved_cpu_rows_identical", "moved_cpu_s", "sharded_devices", "nms_launches_sharded",
             "sharded_rows_identical", "batch_dependence")}}))
+    log(json.dumps({"spatial": {k: spatial_axis[k] for k in (
+        "ranks", "backend", "device", "f64_step_vgg300", "f64_step_lite300", "f64_s",
+        "epoch_loss", "test_map", "rank_states_equal", "tensors_moved", "manifest_epochs",
+        "nms_launches_ranks", "transfers_per_step", "train_step_ms_ranks",
+        "train_step_ms_one_plain", "train_step_ms_one_remat", "peak_mb_plain", "peak_mb_remat",
+        "peak_above_resting_mb_plain", "peak_above_resting_mb_remat", "allreduce_grads_ms",
+        "served_weights_equal", "lifecycle_s", "phase_s", "card")}}))
     i8b = int8["bench"]["sums"][f"b{INT8_BATCHES[-1]}"]
     int8_shape = (f"SSD300-VGG16's {int8['int8_convs']} int8 convs and "
                   f"{int8['shapes'] - int8['int8_convs']} MobileNetV2 / DarkNet-53 shapes, "
@@ -2375,11 +2573,12 @@ def main(argv=None):
         head_paths[f"{path}_serve"] = zoo[name]["nms_launches_serve"]
         head_paths[f"{path}_train"] = zoo[name]["nms_launches_eval"] + \
             zoo[name]["nms_launches_test"]
-    log(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s")
     head_paths["export_serve"] = export["nms_launches_export"]
     head_paths["export_sharded_serve"] = export["nms_launches_sharded"]
     head_paths["ssd_lite_mobilenetv2_ddp_eval"] = ddp["nms_launches_ranks"]
     head_paths["ssd300_vgg16_traced_serve"] = observability["nms_launches_traced"]
+    head_paths["ssd300_vgg16_spatial_test"] = spatial_axis["nms_launches_ranks"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55",

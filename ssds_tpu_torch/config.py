@@ -2,9 +2,10 @@
 
 Counterpart of :mod:`ssds_tpu.config`. The default tree is the same, so
 every ``experiments/cfgs/*.yml`` merges into it unchanged; keys only the
-JAX package reads (``MODEL.S2D_STEM`` / ``S2D_STAGES`` and ``TPU.*`` but for
-``TPU.COMPUTE_DTYPE``, ``TPU.DEBUG_NANS`` and ``TPU.MESH``, which the port's
-Solver reads) are kept so that a config file is valid for both packages.
+JAX package reads (``MODEL.S2D_STEM`` / ``S2D_STAGES``) and ``TPU.DONATE``,
+which neither Solver reads, are kept so that a config file is valid for both
+packages; the port's Solver reads the rest of ``TPU`` (``MESH``,
+``COMPUTE_DTYPE``, ``DEBUG_NANS``, ``REMAT``).
 ``yaml`` is imported inside :func:`cfg_from_file` / :func:`cfg_from_list`
 only: a machine without PyYAML can still build the default config, serve,
 and read a config written as JSON.
@@ -107,7 +108,9 @@ def default_config() -> AttrDict:
             MAX_GT=64,
             DEVICE_AUG=False,
         ),
-        TPU=_ad(  # JAX-only but for COMPUTE_DTYPE, DEBUG_NANS and MESH (the port's Solver)
+        TPU=_ad(  # the port's Solver reads all but DONATE, which neither Solver reads
+            # DATA: the data width (-1: the ranks over SPATIAL); SPATIAL > 1
+            # splits the image rows over that many ranks (parallel/spatial.py)
             MESH=_ad(DATA=-1, SPATIAL=1),
             COMPUTE_DTYPE="bfloat16",
             DONATE=True,

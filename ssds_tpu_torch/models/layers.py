@@ -22,7 +22,9 @@ work in float32 whatever the compute dtype (FSSD after its fusion BN).
 
 Under data parallelism (a process group of more than one rank) a train-mode
 :class:`BatchNorm` takes its statistics over every rank's batch, as the JAX
-package's jitted step over a sharded batch does (:class:`_GlobalBatchNorm`).
+package's jitted step over a sharded batch does (:class:`_GlobalBatchNorm`);
+on the spatial axis each rank holds a band of rows, and the same sums over
+every rank's pixels are the global batch's statistics.
 
 These are the float paths: int8 serving swaps a :class:`Conv` for
 :class:`ssds_tpu_torch.quant.QuantConv2d`; the JAX package's space-to-depth
@@ -152,6 +154,7 @@ class BatchNorm(nn.BatchNorm2d):
     value a channel raises here (``F.batch_norm``), where flax gives the bias.
     Under a process group of several ranks the train-mode statistics are the
     global batch's (:func:`global_statistics`, :class:`_GlobalBatchNorm`).
+    Inside :func:`recomputing` the running buffers stay as they are.
     """
 
     def __init__(self, channels: int):
@@ -163,22 +166,38 @@ class BatchNorm(nn.BatchNorm2d):
                                 False, 0.0, self.eps)
         if global_statistics():
             y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            mean, var = mean.to(self.running_mean.dtype), var.to(self.running_var.dtype)
+            to_biased = 1.0
+        else:
+            # momentum 1 writes the batch's own statistics into the scratch
+            # vectors: the mean, and the variance unbiased, as torch keeps it
+            mean = torch.zeros_like(self.running_mean)
+            var = torch.ones_like(self.running_var)
+            y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+            n = x.numel() // x.shape[1]
+            to_biased = (n - 1) / n
+        if not _RECOMPUTING:  # the forward moved them; its recompute does not
             with torch.no_grad():
-                self.running_mean.mul_(0.9).add_(0.1 * mean.to(self.running_mean.dtype))
-                self.running_var.mul_(0.9).add_(0.1 * var.to(self.running_var.dtype))
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * to_biased * var)
                 self.num_batches_tracked.add_(1)
-            return y
-        # momentum 1 writes the batch's own statistics into the scratch
-        # vectors: the mean, and the variance unbiased, as torch keeps it
-        mean = torch.zeros_like(self.running_mean)
-        var = torch.ones_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_mean.mul_(0.9).add_(0.1 * mean)
-            self.running_var.mul_(0.9).add_(0.1 * ((n - 1) / n) * var)
-            self.num_batches_tracked.add_(1)
         return y
+
+
+_RECOMPUTING: List[bool] = []
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The backward's recompute of a forward under ``TPU.REMAT``
+    (``torch.utils.checkpoint``'s recompute context): a train-mode
+    :class:`BatchNorm` computes as in the forward, but leaves its running
+    statistics where the forward moved them, so they move once a step."""
+    _RECOMPUTING.append(True)
+    try:
+        yield
+    finally:
+        _RECOMPUTING.pop()
 
 
 def global_statistics() -> bool:

@@ -13,12 +13,14 @@ counts the global batch (:func:`ssds_tpu_torch.solver.detection_loss`), and
 the device augmentation draws the global batch's parameters and applies this
 rank's rows (:func:`ssds_tpu_torch.ops.augment_device.augment_batch`).
 
-``TPU.MESH`` maps onto the launch: ``DATA`` of -1 or 0 takes the world size
-and another value must equal it; a global ``TRAIN.BATCH_SIZE`` must divide
-by it, where the JAX package clips its mesh to a divisor
-(``ssds_tpu/parallel/sharding.py:54-56``): a DDP rank cannot sit out a step.
-The spatial axis (``MESH.SPATIAL > 1``) is not ported (ROADMAP.md, "Not
-ported").
+``TPU.MESH`` maps onto the launch: the world of ``W`` ranks is ``D x S``,
+``S`` the spatial width (``MESH.SPATIAL``, :func:`spatial_size`) and ``D``
+the data width (:func:`data_parallel_size`): ``DATA`` of -1 or 0 takes ``W /
+S`` and another value must equal it. A global ``TRAIN.BATCH_SIZE`` must
+divide by ``D``, where the JAX package clips its mesh to a divisor
+(``ssds_tpu/parallel/sharding.py:54-56``): a rank cannot sit out a step.
+The spatial axis, on which the ``S`` ranks of a data group each hold a band
+of image rows, is :mod:`ssds_tpu_torch.parallel.spatial`.
 
 Two ranks may share one card only on gloo: NCCL refuses two ranks on one GPU.
 """
@@ -93,26 +95,33 @@ def rank_device(device) -> torch.device:
     return dev
 
 
-def data_parallel_size(tpu_cfg, batch_size: int) -> int:
-    """The data-parallel width from ``cfg.TPU.MESH``, which is the world size.
+def spatial_size(tpu_cfg) -> int:
+    """The spatial width ``S`` from ``cfg.TPU.MESH.SPATIAL`` (1: no spatial axis)."""
+    return max(1, int(tpu_cfg.MESH.get("SPATIAL", 1)))
 
-    ``DATA`` of -1 or 0 takes the world size; another value must equal it.
-    ``SPATIAL > 1`` raises ``NotImplementedError``: the spatial axis is not
-    ported. The global ``batch_size`` must divide by the world size (the JAX
-    package clips its mesh instead; a DDP rank cannot be left idle)."""
+
+def data_parallel_size(tpu_cfg, batch_size: int) -> int:
+    """The data-parallel width ``D`` from ``cfg.TPU.MESH``: the world size over
+    the spatial width.
+
+    The world size must divide by ``SPATIAL``. ``DATA`` of -1 or 0 takes ``W
+    / S``; another value must equal it. The global ``batch_size`` must divide
+    by ``D`` (the JAX package clips its mesh instead; a rank cannot be left
+    idle)."""
     world = world_size()
-    mesh = tpu_cfg.MESH
-    if int(mesh.get("SPATIAL", 1)) > 1:
-        raise NotImplementedError("TPU.MESH.SPATIAL > 1: the spatial mesh axis is not ported "
-                                  "(ROADMAP.md, 'Not ported'); the port is data-parallel only")
-    want = int(mesh.DATA)
-    if want not in (-1, 0) and want != world:
-        raise ValueError(f"TPU.MESH.DATA={want}, but the launch has {world} ranks "
-                         "(-1 or 0 takes the world size)")
-    if batch_size % world:
+    spatial = spatial_size(tpu_cfg)
+    if world % spatial:
+        raise ValueError(f"TPU.MESH.SPATIAL={spatial}, but the launch has {world} rank(s), "
+                         "which do not divide by it")
+    data = world // spatial
+    want = int(tpu_cfg.MESH.DATA)
+    if want not in (-1, 0) and want != data:
+        raise ValueError(f"TPU.MESH.DATA={want}, but the launch has {world} ranks over "
+                         f"SPATIAL={spatial}, a data width of {data} (-1 or 0 takes it)")
+    if batch_size % data:
         raise ValueError(f"TRAIN.BATCH_SIZE={batch_size} (the global batch) does not divide "
-                         f"by the {world} ranks")
-    return world
+                         f"by the {data} data-parallel groups of ranks")
+    return data
 
 
 def allgather_pickled(obj: Any) -> List[Any]:
@@ -147,5 +156,5 @@ def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
 
 
 __all__ = ["initialize_distributed", "destroy_distributed", "world_size", "rank", "local_rank",
-           "is_main", "rank_device", "data_parallel_size", "allgather_pickled",
+           "is_main", "rank_device", "data_parallel_size", "spatial_size", "allgather_pickled",
            "all_reduce_mean", "all_reduce_sum_"]

@@ -30,6 +30,10 @@ step computes in bf16 when ``MODEL.HALF_PRECISION`` is set and
 ``TPU.DEBUG_NANS`` stops at the first non-finite loss or gradient with a
 ``FloatingPointError`` naming the step and the tensor (JAX's
 ``jax_debug_nans``); off, the step adds no host synchronisation.
+``TPU.REMAT`` runs the forward under ``torch.utils.checkpoint``, as the JAX
+step wraps it in ``jax.checkpoint``: the backward recomputes the
+activations instead of keeping them, and no number of the step changes (the
+recompute leaves the BatchNorms' running statistics alone).
 
 Data parallelism (:mod:`ssds_tpu_torch.parallel.sharding`): under a process
 group of ``N`` ranks (``torch.distributed.run``) ``TRAIN.BATCH_SIZE`` is the
@@ -44,22 +48,34 @@ rank's contiguous share of the images and merge the detections and loss sums
 over ``allgather_pickled``; rank 0 scores them and every rank returns its
 mAP.
 
+The spatial axis (``TPU.MESH.SPATIAL`` = ``S`` > 1,
+:mod:`ssds_tpu_torch.parallel.spatial`): the ``N`` ranks are ``D x S``, and
+the ``S`` ranks of a data group load the group's share at ``batch / D``.
+Each takes a band of the image rows into a model whose convs and pools
+exchange halo rows; the loss runs on the whole images, gathered at the
+heads, counts each image's positives once, and the gradient is the sum of
+every rank's over ``D`` (no DDP wrapper). Eval, test and serving run whole
+images, sharded over the ranks as above.
+
 Differences from the JAX solver: every head is ported (SSD, SSDLite, FSSD,
-RFB, YOLOv2/v3); the spatial mesh axis is not (``TPU.MESH.SPATIAL``). After
-a resume the port continues the LR schedule from the restored step, as
+RFB, YOLOv2/v3); on the spatial axis FSSD and YOLO raise (their resize,
+upsample and reorg mix rows across bands). After a resume the port
+continues the LR schedule from the restored step, as
 ``ssds_tpu/solver.py:366-367`` intends; the JAX optimizer restarts its
 schedule count at 0 (ROADMAP.md §3).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ssds_tpu_torch import checkpoint as ckpt_lib
 from ssds_tpu_torch.data.factory import load_data
@@ -70,7 +86,8 @@ from ssds_tpu_torch.ops.augment_device import augment_batch
 from ssds_tpu_torch.ops.losses import multibox_loss, multibox_sums
 from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect, detect_decoded
 from ssds_tpu_torch.ops.yolo import yolo_loss, yolo_v2_loss
-from ssds_tpu_torch.parallel import sharding
+from ssds_tpu_torch.models.layers import recomputing
+from ssds_tpu_torch.parallel import sharding, spatial
 from ssds_tpu_torch.utils.visualize import viz_feature_maps, viz_grads, viz_prior_box, viz_samples
 
 # --------------------------------------------------------------------------
@@ -336,7 +353,7 @@ def unwrap(model):
 
 
 def detection_loss(model, priors, out, batch, seen_images: float = math.inf,
-                   data_parallel: bool = False):
+                   data_parallel: bool = False, spatial: int = 1):
     """``(loss_l, loss_c)`` of the raw outputs ``out`` on a device ``batch``:
     the MultiBox loss against ``priors``, or, for a YOLO model (``priors``
     None), ``yolo_loss`` (v3) or ``yolo_v2_loss`` (v2, whose prior-regression
@@ -346,10 +363,12 @@ def detection_loss(model, priors, out, batch, seen_images: float = math.inf,
 
     ``data_parallel`` (a train step of several ranks): the MultiBox sums are
     divided by the global batch's positive count (one all-reduce) over the
-    world size, since DDP averages the ranks' gradients; the ranks' mean
-    loss and gradient are then the global batch's, as the JAX step's over a
-    sharded batch. A YOLO loss divides by the batch, so the ranks' mean is
-    already the global batch's."""
+    data width ``D``, since the ranks' gradients are averaged over ``D``; the
+    ranks' mean loss and gradient are then the global batch's, as the JAX
+    step's over a sharded batch. On the spatial axis the ``spatial`` ranks of
+    a data group hold the same images' loss, so the sum over the ranks counts
+    each positive ``spatial`` times and is divided by it. A YOLO loss divides
+    by the batch, so the ranks' mean is already the global batch's."""
     boxes, labels, valid = batch["boxes"], batch["labels"], batch["valid"]
     model = unwrap(model)
     if priors is not None:
@@ -357,7 +376,8 @@ def detection_loss(model, priors, out, batch, seen_images: float = math.inf,
         if not data_parallel:
             return multibox_loss(loc, conf, boxes, labels, valid, priors)
         loss_l, loss_c, num_pos = multibox_sums(loc, conf, boxes, labels, valid, priors)
-        n = torch.clamp(sharding.all_reduce_sum_(num_pos), min=1.0) / sharding.world_size()
+        n = torch.clamp(sharding.all_reduce_sum_(num_pos) / spatial, min=1.0)
+        n = n / (sharding.world_size() // spatial)
         return loss_l / n, loss_c / n
     img_hw = tuple(batch["images"].shape[1:3])
     anchors = model.anchor_tensors(boxes.device)
@@ -378,7 +398,8 @@ def detections(model, priors, out, img_hw, post: PostProcessConfig) -> torch.Ten
 
 
 def build_train_step(model, priors, optimizer, lr_schedule, dtype, pixel_means,
-                     clip: float = 0.0, device_aug_prob: float = 0.0, debug_nans: bool = False):
+                     clip: float = 0.0, device_aug_prob: float = 0.0, debug_nans: bool = False,
+                     plan: Optional[spatial.SpatialPlan] = None, remat: bool = False):
     """The per-iteration body: ``train_step(batch, step) -> {"loss", "loss_l",
     "loss_c"}`` (device scalars), the model in train mode. ``batch`` holds
     ``images`` (uint8 NHWC), ``boxes``, ``labels`` and ``valid`` on the
@@ -394,12 +415,38 @@ def build_train_step(model, priors, optimizer, lr_schedule, dtype, pixel_means,
     group of several ranks ``batch`` is this rank's share of the global
     batch, and the step keeps the global batch's reductions (the loss's
     normaliser, YOLOv2's ``step * global batch``, the augmentation's draws;
-    the BatchNorms' statistics are the layers' own)."""
+    the BatchNorms' statistics are the layers' own).
+
+    ``plan`` (the spatial axis; ``model`` partitioned by
+    :func:`ssds_tpu_torch.parallel.spatial.partition` and not wrapped):
+    ``batch`` is this rank's data group's share, whole images, augmented
+    whole; the forward takes this rank's band of rows and gives the whole
+    images' outputs, the loss counts each positive once, and the gradients
+    are reduced over the world by :func:`spatial.reduce_gradients`.
+    ``remat`` (``TPU.REMAT``) runs the forward under
+    ``torch.utils.checkpoint`` (non-reentrant, recomputed in full, inside
+    :func:`recomputing`)."""
     device = next(model.parameters()).device
     means = torch.tensor(tuple(pixel_means), dtype=torch.float32, device=device)
     aug_gen = torch.Generator(device=device) if device_aug_prob > 0 else None
     named = list(unwrap(model).named_parameters())
     world, rank = sharding.world_size(), sharding.rank()
+    width = plan.size if plan is not None else 1
+    groups = world // width  # the data width D
+
+    def run(x):
+        with spatial.active(plan):
+            return forward_input(model, x, dtype)
+
+    def forward(x):
+        if not remat:
+            return run(x)
+        # recomputed in full: a recompute stopped early could skip a
+        # collective that another rank's recompute makes
+        with torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            return torch.utils.checkpoint.checkpoint(
+                run, x, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
     def train_step(batch, step: int) -> Dict[str, torch.Tensor]:
         model.train()  # BatchNorm on batch statistics, as the JAX step's train=True
@@ -407,15 +454,21 @@ def build_train_step(model, priors, optimizer, lr_schedule, dtype, pixel_means,
         if aug_gen is not None:
             aug_gen.manual_seed(aug_seed(step))
             x, boxes, valid = augment_batch(aug_gen, x, batch["boxes"], batch["valid"],
-                                            device_aug_prob, means, shard=(rank, world))
+                                            device_aug_prob, means, shard=(rank // width, groups))
             batch = dict(batch, boxes=boxes, valid=valid)
-        out = forward_input(model, x, dtype)
+        if plan is not None:
+            spatial.check_height(x.shape[1], width)
+            a, b = plan.rows(x.shape[1])
+            x = x[:, a:b]
+        out = forward(x)
         loss_l, loss_c = detection_loss(model, priors, out, batch,
-                                        seen_images=step * batch["images"].shape[0] * world,
-                                        data_parallel=world > 1)
+                                        seen_images=step * batch["images"].shape[0] * groups,
+                                        data_parallel=world > 1, spatial=width)
         loss = loss_l + loss_c
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if plan is not None:
+            spatial.reduce_gradients([p for _, p in named], groups)
         if debug_nans:
             check_finite(step, [("loss_l", loss_l), ("loss_c", loss_c)]
                          + [(f"the gradient of {n}", p.grad) for n, p in named])
@@ -450,7 +503,11 @@ class Solver:
         self.cfg = cfg
         if torch.device(device).type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Solver: device 'cuda' asked for, but no GPU is available")
-        self.world = sharding.data_parallel_size(cfg.TPU, int(cfg.TRAIN.BATCH_SIZE))
+        self.spatial_size = sharding.spatial_size(cfg.TPU)  # S
+        if self.spatial_size > 1:
+            spatial.check_model(cfg.MODEL, self.spatial_size)
+        self.data_size = sharding.data_parallel_size(cfg.TPU, int(cfg.TRAIN.BATCH_SIZE))  # D
+        self.world = sharding.world_size()
         self.rank = sharding.rank()
         self.device = sharding.rank_device(device)
         model, self.feature_maps = create_model(cfg.MODEL)
@@ -486,15 +543,17 @@ class Solver:
     # -- data ---------------------------------------------------------------
 
     def get_loader(self, phase: str):
-        """The phase's loader; the train loader is this rank's interleaved
-        share at ``TRAIN.BATCH_SIZE / world`` (``ssds_tpu/solver.py:343-357``)."""
+        """The phase's loader; the train loader is this rank's data group's
+        interleaved share at ``TRAIN.BATCH_SIZE / D`` (``ssds_tpu/solver.py:343-357``),
+        the same on the group's ``S`` spatial ranks."""
         if phase not in self.loaders:
             train = phase == "train"
             bs = int(self.cfg.TRAIN.BATCH_SIZE if train else self.cfg.TEST.BATCH_SIZE)
             self.loaders[phase] = load_data(
                 self.cfg.DATASET, phase, image_size=self.cfg.MODEL.IMAGE_SIZE,
-                batch_size=bs // self.world if train else bs,
-                shard_id=self.rank if train else 0, num_shards=self.world if train else 1)
+                batch_size=bs // self.data_size if train else bs,
+                shard_id=self.rank // self.spatial_size if train else 0,
+                num_shards=self.data_size if train else 1)
         return self.loaders[phase]
 
     def _upload(self, batch, keys=("images", "boxes", "labels", "valid")):
@@ -547,11 +606,16 @@ class Solver:
 
     def make_train_step(self):
         device_aug = bool(self.cfg.DATASET.get("DEVICE_AUG", False))
+        plan = None
+        if self.spatial_size > 1:  # the convs and pools on bands (inert outside the step)
+            spatial.partition(self.model, self.img_hw)
+            plan = spatial.SpatialPlan.for_rank(self.rank, self.world, self.spatial_size)
         return build_train_step(self._ddp or self.model, self.priors, self.optimizer,
                                 self.lr_schedule, self.compute_dtype, self.cfg.DATASET.PIXEL_MEANS,
                                 clip=float(self.cfg.TRAIN.OPTIMIZER.get("CLIP_GRADIENT", 0.0) or 0.0),
                                 device_aug_prob=float(self.cfg.DATASET.PROB) if device_aug else 0.0,
-                                debug_nans=bool(self.cfg.TPU.get("DEBUG_NANS", False)))
+                                debug_nans=bool(self.cfg.TPU.get("DEBUG_NANS", False)),
+                                plan=plan, remat=bool(self.cfg.TPU.get("REMAT", False)))
 
     def make_eval_step(self):
         """One forward per batch gives both the eval loss and the detections
@@ -602,10 +666,11 @@ class Solver:
 
     def _wrap_ddp(self):
         """Wrap the model in ``DistributedDataParallel`` (several ranks
-        only; after the optimizer has set which parameters train). Buffers
-        are not broadcast: the BatchNorms' running statistics are global and
-        equal on every rank."""
-        if self.world > 1 and self._ddp is None:
+        and no spatial axis, whose step reduces its own gradients; after the
+        optimizer has set which parameters train). Buffers are not
+        broadcast: the BatchNorms' running statistics are global and equal on
+        every rank."""
+        if self.world > 1 and self.spatial_size == 1 and self._ddp is None:
             from torch.nn.parallel import DistributedDataParallel
 
             ids = [self.device.index] if self.device.type == "cuda" else None

@@ -8,7 +8,9 @@ GPU; ``cpu`` for a run without one).
 Under ``python -m torch.distributed.run --nproc_per_node N -m
 ssds_tpu_torch.train --cfg <yml>`` each rank joins the process group
 (NCCL on the cards, gloo with ``--device cpu``) and trains its share of the
-global batch (:mod:`ssds_tpu_torch.parallel.sharding`); no flag is needed.
+global batch (:mod:`ssds_tpu_torch.parallel.sharding`), or, under
+``TPU.MESH.SPATIAL``, its band of rows of its data group's images
+(:mod:`ssds_tpu_torch.parallel.spatial`); no flag is needed.
 """
 
 from __future__ import annotations

@@ -139,9 +139,10 @@ def test_eval_merge_with_injected_gather(tmp_path):
 
 
 def test_mesh_config_maps_onto_the_world_size(monkeypatch):
-    """``TPU.MESH`` against the launch: DATA -1 / 0 take the world size and
-    another value must equal it, SPATIAL > 1 is not ported, and the global
-    batch must divide by the ranks; one process needs no group."""
+    """``TPU.MESH`` against the launch: DATA -1 / 0 take the world size over
+    SPATIAL and another value must equal it, the world must divide by
+    SPATIAL, and the global batch must divide by the data width; one process
+    needs no group."""
     from ssds_tpu_torch.config import default_config
     from ssds_tpu_torch.parallel import sharding
 
@@ -161,6 +162,11 @@ def test_mesh_config_maps_onto_the_world_size(monkeypatch):
     tpu.MESH.DATA = -1
     with pytest.raises(ValueError, match="divide"):
         sharding.data_parallel_size(tpu, 33)
-    tpu.MESH.SPATIAL = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    tpu.MESH.SPATIAL = 2  # 1 x 2: one data group of two bands
+    assert (sharding.data_parallel_size(tpu, 33), sharding.spatial_size(tpu)) == (1, 2)
+    tpu.MESH.DATA = 2
+    with pytest.raises(ValueError, match="data width of 1"):
+        sharding.data_parallel_size(tpu, 32)
+    tpu.MESH.DATA, tpu.MESH.SPATIAL = -1, 3
+    with pytest.raises(ValueError, match="do not divide"):
         sharding.data_parallel_size(tpu, 32)

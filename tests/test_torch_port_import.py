@@ -56,6 +56,7 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.quant", "ssds_tpu_torch.ops.quant",
                    "ssds_tpu_torch.ops.cuda.int8_conv", "ssds_tpu_torch.ops.augment_device",
                    "ssds_tpu_torch.tools.int8_bench", "ssds_tpu_torch.parallel.sharding",
+                   "ssds_tpu_torch.parallel.spatial",
                    "ssds_tpu_torch.utils.profiler", "ssds_tpu_torch.utils.timer",
                    "ssds_tpu_torch.utils.visualize", "ssds_tpu_torch.utils.summary",
                    "ssds_tpu_torch.demo"):

@@ -222,6 +222,6 @@ def test_solver_refuses_cuda_without_a_gpu_and_unported_phases(tmp_path):
             Solver(cfg)
     cfg.PHASE = ["train", "visualize"]  # ported: visualize_epoch
     assert Solver(cfg, device="cpu").phases == ["train", "visualize"]
-    cfg.TPU.MESH.SPATIAL = 2  # the one part of the JAX Solver not ported
-    with pytest.raises(NotImplementedError, match="SPATIAL"):
+    cfg.TPU.MESH.SPATIAL = 2  # ported (parallel/spatial.py), but one process holds one band
+    with pytest.raises(ValueError, match="SPATIAL"):
         Solver(cfg, device="cpu")

@@ -23,13 +23,25 @@ A run may switch one global reduction off, as a plain DDP would leave it:
 ``per_rank_stats`` (BatchNorm on this rank's statistics) or
 ``per_rank_normaliser`` (the MultiBox loss over this rank's positives).
 
+Spatial runs (``tests/test_torch_port_spatial.py``, ``chip_smoke.py`` phase
+18): ``spatial`` S > 1 puts the ``W`` ranks on a ``W/S x S`` layout: the
+model is partitioned (``ssds_tpu_torch.parallel.spatial``) and not wrapped
+in DDP, each data group takes its rows of the global batch, and the step
+takes the spatial plan; the run's output adds the halo and gather transfers
+it made. ``remat`` runs the step under ``TPU.REMAT``. Two controls break the
+spatial step on purpose: ``zero_halo`` (each band padded with zeros where its
+neighbours' rows belong, and no halo gradient sent back) and
+``normaliser_copies`` (the positives counted once on each of the S ranks).
+
 ``--lifecycle`` (``tests/test_torch_port_ddp_lifecycle.py``, ``chip_smoke.py``
 phase 16c): the rank of a ``torch.distributed.run`` launch joins the group
 its environment describes, runs ``Solver.train_model`` (with the eval that
 ``CFG``, a YAML or JSON config, asks for), saves its state dict, times
 ``test_model``, then times 20 train steps after 3 (synchronised), and writes
 ``OUT.<rank>.json`` (every scalar the Solver wrote, the test mAP and seconds,
-the step's milliseconds, the NMS kernel's launches; under several ranks the
+the step's milliseconds, the NMS kernel's launches, a step's spatial
+transfers (``halo_messages`` / ``halo_bytes``, ``gather_messages`` /
+``gather_bytes``, this rank's sends, forward and backward); under several ranks the
 milliseconds of one BatchNorm-statistics all-reduce and of one all-reduce of
 every trainable parameter's gradient, timed alone) and ``OUT.<rank>.pt``
 (the state dict after training). ``--synthetic-voc SEED,SIZE`` draws the VOC
@@ -61,36 +73,57 @@ def free_port():
 def launch(tmp, name, runs, world, device="cpu", backend=None):
     """Start ``world`` ranks of this script on the named ``runs`` (a dict of
     run dicts, saved under the directory ``tmp``) on ``device`` with
-    ``backend``; returns ``(processes, output paths)`` for :func:`collect`."""
+    ``backend``; returns ``(processes, output paths)`` for :func:`collect`.
+    Each rank's output goes to a file beside its results (a pipe that no one
+    reads while a rank waits for another would stall both)."""
     import subprocess
 
     job = os.path.join(tmp, f"{name}.pt")
     torch.save(runs, job)
     port = free_port()
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX", "XLA"))}
-    env.update(PYTHONPATH=os.pathsep.join([REPO, HERE]), OMP_NUM_THREADS="1")
+    env.update(PYTHONPATH=os.pathsep.join([REPO, HERE]), OMP_NUM_THREADS="1",
+               PYTHONFAULTHANDLER="1")
     outs = [os.path.join(tmp, f"{name}_{r}.out") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "torch_port_ddp_worker.py"),
-                               "--rank", str(r), "--world", str(world), "--port", str(port),
-                               "--job", job, "--out", outs[r], "--device", str(device)]
-                              + (["--backend", backend] if backend else []),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              env=env, cwd=REPO) for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(f"{outs[r]}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "torch_port_ddp_worker.py"), "--rank", str(r),
+                 "--world", str(world), "--port", str(port), "--job", job, "--out", outs[r],
+                 "--device", str(device)] + (["--backend", backend] if backend else []),
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=REPO))
     return procs, outs
 
 
 def collect(procs, outs, timeout=600):
-    """Wait for :func:`launch`'s ranks; returns each rank's results."""
-    logs = []
+    """Wait for :func:`launch`'s ranks; returns each rank's results. Ranks
+    still running after ``timeout`` seconds dump their stacks (SIGABRT under
+    ``PYTHONFAULTHANDLER``) into the failure's report."""
+    import signal
+    import subprocess
+    import time
+
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    if q.poll() is None:
+                        q.send_signal(signal.SIGABRT)
+                time.sleep(2)
+                break
     finally:
         for p in procs:
             p.kill()
-    for r, (p, log) in enumerate(zip(procs, logs)):
+            p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        with open(f"{out}.log") as f:
+            log = f.read()
         if p.returncode != 0 or f"DDP_WORKER_OK rank={r}" not in log:
-            raise AssertionError(f"rank {r} failed:\n{log[-4000:]}")
+            raise AssertionError(f"rank {r} failed (rc {p.returncode}):\n{log[-6000:]}")
     return [torch.load(o, weights_only=False) for o in outs]
 
 
@@ -110,7 +143,8 @@ def errors(got, want):
         umax = max(float((wsd[n] - start[n]).abs().max()) for n in params)
         upd = max(float((gsd[n] - wsd[n]).abs().max()) for n in params) / umax
         stats = [n for n in wsd if n.endswith(("running_mean", "running_var"))]
-        stat = max(float((gsd[n] - wsd[n]).abs().max() / wsd[n].abs().max()) for n in stats)
+        stat = max((float((gsd[n] - wsd[n]).abs().max() / wsd[n].abs().max()) for n in stats),
+                   default=0.0)  # a model without BatchNorm has none
         rows.append((loss, upd, stat))
     return rows
 
@@ -130,28 +164,48 @@ def running_stats_err(got, want):
     return err
 
 
+def _zero_halo(transfer):
+    """``SpatialPlan.transfer`` with the halo rows replaced by zeros (nothing
+    sent, in either direction); the head gather still moves its rows."""
+
+    def fake(self, sends, recvs, like, kind):
+        if kind != "halo":
+            return transfer(self, sends, recvs, like, kind)
+        return [like.new_zeros((like.shape[0], like.shape[1], n, like.shape[3]))
+                for _, n in recvs]
+
+    return fake
+
+
 def run_steps(run, world, rank, device):
     from ssds_tpu_torch import solver
     from ssds_tpu_torch.models import layers
     from ssds_tpu_torch.models.builder import create_model, init_model
     from ssds_tpu_torch.ops import augment_device
+    from ssds_tpu_torch.parallel import spatial
 
     model = init_model(create_model(run["model"])[0])
     model.load_state_dict(run["state_dict"], strict=True)
     model.double().train().to(device)
     tc = run["train_cfg"]
     opt = solver.configure_optimizer(tc, model.named_parameters())
-    net = model
-    if world > 1:
+    width = run.get("spatial", 1)
+    net, plan = model, None
+    if width > 1:
+        spatial.partition(model, run["model"].IMAGE_SIZE)
+        plan = spatial.SpatialPlan.for_rank(rank, world, width)
+    elif world > 1:
         net = torch.nn.parallel.DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda" else None,
             broadcast_buffers=False)
     priors = None if run["priors"] is None else torch.from_numpy(run["priors"]).to(device)
     step = solver.build_train_step(net, priors, opt, solver.configure_lr_scheduler(tc, 1),
                                    torch.float64, run["means"],
-                                   device_aug_prob=run.get("device_aug_prob", 0.0))
-    b = run["batch"]["images"].shape[0] // world
-    local = {k: torch.from_numpy(v[rank * b:(rank + 1) * b]).to(device)
+                                   device_aug_prob=run.get("device_aug_prob", 0.0),
+                                   plan=plan, remat=run.get("remat", False))
+    b = run["batch"]["images"].shape[0] // (world // width)
+    group = rank // width
+    local = {k: torch.from_numpy(v[group * b:(group + 1) * b]).to(device)
              for k, v in run["batch"].items()}
 
     def snapshot():
@@ -173,7 +227,14 @@ def run_steps(run, world, rank, device):
         patches.append(mock.patch.object(
             solver, "detection_loss",
             lambda *a, **k: loss_fn(*a, **{**k, "data_parallel": False})))
+    if run.get("normaliser_copies"):  # the positives' sum over the world not divided by S
+        patches.append(mock.patch.object(
+            solver, "detection_loss", lambda *a, **k: tuple(v / width for v in loss_fn(*a, **k))))
+    if run.get("zero_halo"):
+        patches.append(mock.patch.object(spatial.SpatialPlan, "transfer",
+                                         _zero_halo(spatial.SpatialPlan.transfer)))
     out = [(None, None, snapshot())]
+    spatial.reset_counters()
     with contextlib.ExitStack() as stack:
         for p in patches:
             stack.enter_context(p)
@@ -181,7 +242,8 @@ def run_steps(run, world, rank, device):
             m = step(local, run.get("start", 0) + i)
             ll, lc = solver.sharding.all_reduce_mean([m["loss_l"], m["loss_c"]])
             out.append((ll, lc, snapshot()))
-    return {"steps": out, "applied": [type(p)(*(t.cpu() for t in p)) for p in applied]}
+    return {"steps": out, "applied": [type(p)(*(t.cpu() for t in p)) for p in applied],
+            "transfers": dict(spatial.counters)}
 
 
 class RecordingWriter:
@@ -204,7 +266,7 @@ def lifecycle(cfg_path, out, device):
 
     from ssds_tpu_torch.config import cfg_from_file
     from ssds_tpu_torch.ops.cuda.nms import nms_mask
-    from ssds_tpu_torch.parallel import sharding
+    from ssds_tpu_torch.parallel import sharding, spatial
     from ssds_tpu_torch.solver import Solver
 
     writer = RecordingWriter()
@@ -220,10 +282,12 @@ def lifecycle(cfg_path, out, device):
         for i in range(23):
             if i == 3:
                 _synchronize(solver.device)
+                spatial.reset_counters()
                 t0 = time.perf_counter()
             solver._train_step(solver._upload(host), solver.step)
         _synchronize(solver.device)
         step_ms = (time.perf_counter() - t0) / 20 * 1e3
+        transfers = {k: v / 20 for k, v in spatial.counters.items()}  # a step's
         collectives = {}
         if sharding.world_size() > 1:  # what the step's collectives cost alone
             n_grads = sum(p.numel() for p in solver.model.parameters() if p.requires_grad)
@@ -242,7 +306,8 @@ def lifecycle(cfg_path, out, device):
         json.dump({"world": solver.world, "device": str(solver.device),
                    "scalars": writer.scalars, "test_map": test_map, "test_s": test_s,
                    "test_images": len(solver.get_loader("test").dataset),
-                   "train_step_ms": step_ms, "nms_launches": nms_mask.launches, **collectives},
+                   "train_step_ms": step_ms, "nms_launches": nms_mask.launches,
+                   "spatial": solver.spatial_size, **transfers, **collectives},
                   f)
 
 
