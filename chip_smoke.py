@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8, device-augmentation, data-parallel, observability and spatial paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8, device-augmentation, data-parallel, observability and spatial (SSD, FSSD, YOLO) paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -221,17 +221,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
    process on the same recipe: the train step's time and
    ``torch.cuda.max_memory_allocated`` with and without ``TPU.REMAT``, beside
    the ranks' step (read with phase 16's caveat: gloo ranks time-share one
-   card and stage every transfer through the host).
+   card and stage every transfer through the host);
+19. the spatial axis for the families whose heads mix rows with a layer that
+   is neither a conv nor a pool (``check_spatial_heads``; 1 x 2, laid out as
+   phase 18): a. one float64 step (cuDNN float64, batch 2, seeded weights)
+   of FSSD-VGG16-300 (the fusion's two resizes, 8732 priors),
+   YOLOv3-DarkNet53-416 (its two upsamples, 10,647 boxes) and
+   YOLOv2-DarkNet19-416 (its reorg, whose 26-row input splits 13 / 13, 845
+   boxes), the ranks against one rank on the same card within phase 18's
+   bounds, the ranks' states equal (a digest of each), rank 0's halo and
+   gather transfers; b. YOLOv3-DarkNet53-416's bf16 recipe (batch 16, cut as
+   phase 12) through ``Solver.train_model`` for one epoch on the 2 ranks
+   (``--lifecycle``): losses finite, the state moved and equal on the ranks,
+   the same test mAP on both; a 1-process ``ObjectDetector`` serves the
+   checkpoint through ``detect_decoded`` with the NMS kernel's launches
+   reset before and read after, its detect rows identical with the plain
+   NMS; c. one process on the same recipe: the train step's time beside the
+   ranks' and the gradients' all-reduce alone (phase 18's caveat).
 
 Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
 ``{"coco": {...}}``, ``{"heads": {"fssd": {...}, "rfb": {...}}}``,
 ``{"yolo": {"yolo_v3": {...}, "yolo_v2": {...}}}``, ``{"zoo": {"resnet50":
 {...}, "ssd512": {...}}}`` and ``{"export": {...}}``, ``{"int8": {...}}``,
 ``{"device_aug": {...}}``, ``{"ddp": {...}}``, ``{"observability":
-{...}, "export_moved_sharded": {...}}`` and ``{"spatial": {...}}``, then
-``{"kernels": [...]}`` (the NMS entry's ``launches`` counts phases 4, 9, 10,
-11, 12, 13's and 17's serving, ``launches_by_path`` every path, phase 16's
-ranks' eval and phase 18's ranks' test too; ``int8_conv`` and
+{...}, "export_moved_sharded": {...}}``, ``{"spatial": {...}}`` and
+``{"spatial_heads": {...}}``, then ``{"kernels": [...]}`` (the NMS entry's
+``launches`` counts phases 4, 9, 10, 11, 12, 13's, 17's and 19's serving,
+``launches_by_path`` every path, phase 16's ranks' eval and phase 18's and
+19's ranks' test too; ``int8_conv`` and
 ``quantize_act`` count phase 14's serving, their times summed over its shapes
 at batch 32), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
@@ -364,6 +381,12 @@ TIMED_RTOL = 0.1
 # 2 ranks against 1 (as phase 16's); the bf16 recipe's epochs
 SPATIAL_F64_BATCH, SPATIAL_LITE_F64_BATCH, SPATIAL_F64_LIMITS = 2, 4, (1e-6, 1e-5, 1e-9)
 SPATIAL_EPOCHS = 1
+# phase 19: the spatial axis for the families whose heads resize or reorg
+# (1 x 2): each model's float64 step at this batch, phase 18's bounds; then
+# YOLOv3-DarkNet53-416's bf16 recipe for SPATIAL_EPOCHS
+SPATIAL_HEADS = {"fssd": "FSSD-VGG16-300", "yolo_v3": "YOLOv3-DarkNet53-416",
+                 "yolo_v2": "YOLOv2-DarkNet19-416"}
+SPATIAL_HEADS_F64_BATCH = 2
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -2179,6 +2202,192 @@ def check_spatial(seed, dev, card, log):
     return out
 
 
+def check_spatial_heads(seed, dev, card, log):
+    """Phase 19: FSSD and YOLO on the spatial axis, 1 x 2 (see the docstring)."""
+    from ssds_tpu_torch.checkpoint import find_previous
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.data.factory import load_data
+    from ssds_tpu_torch.detector import ObjectDetector
+    from ssds_tpu_torch.models.builder import create_model, create_priors, init_model, is_yolo
+    from ssds_tpu_torch.ops import postprocess
+    from ssds_tpu_torch.ops.cuda.nms import nms_mask
+    from ssds_tpu_torch.ops.nms import nms_mask_torch
+    from ssds_tpu_torch.solver import Solver
+    from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
+
+    worker = ddp_worker()
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    ranks, sp_dev, backend = (2, "cuda", "nccl") if count > 1 else (2, DEVICE, "gloo")
+    out = {"card": card, "ranks": ranks, "backend": backend, "device": sp_dev}
+    log(f"phase 19: FSSD and YOLO on the spatial axis, 1 x {ranks}, {backend} ranks on "
+        f"{'one card each' if count > 1 else 'card 0'}")
+    makers = {"fssd": head_config("fssd"), "yolo_v3": yolo_config("yolo_v3"),
+              "yolo_v2": yolo_config("yolo_v2")}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 19a: one float64 step of each model on 2 bands against one process
+        runs = {}
+        for name, make in makers.items():
+            root = os.path.join(tmp, f"voc_{name}")
+            cfg = make(root, os.path.join(tmp, f"f64_{name}"))
+            size = int(cfg.MODEL.IMAGE_SIZE[0])
+            write_voc(root, seed, SPATIAL_HEADS_F64_BATCH, 0, size=size)
+            with mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed, size)}):
+                loader = load_data(cfg.DATASET, "train", image_size=cfg.MODEL.IMAGE_SIZE,
+                                   batch_size=SPATIAL_HEADS_F64_BATCH)
+                batch = next(iter(loader))
+                loader.close()
+            model, fmaps = create_model(cfg.MODEL)
+            priors = None if is_yolo(cfg.MODEL) else create_priors(cfg.MODEL, fmaps)
+            runs[name] = dict(model=cfg.MODEL, train_cfg=cfg.TRAIN,
+                              state_dict=init_model(model, seed=seed).state_dict(),
+                              priors=priors, steps=1, compact=True,
+                              batch={k: batch[k] for k in ("images", "boxes", "labels", "valid")},
+                              means=tuple(cfg.DATASET.PIXEL_MEANS))
+        t0 = time.perf_counter()
+        banded = {k: dict(r, spatial=ranks) for k, r in runs.items()}
+        started = [worker.launch(tmp, "sph_two", banded, ranks, device=sp_dev, backend=backend),
+                   worker.launch(tmp, "sph_one", runs, 1, device=DEVICE, backend="gloo")]
+        two, one = (worker.collect(*st) for st in started)
+        out["f64_s"] = time.perf_counter() - t0
+        for name, run in runs.items():
+            got, want = (worker.expand(run, r[0][name]) for r in (two, one))
+            loss, upd, _ = worker.errors(got, want)[0]
+            stat = worker.running_stats_err(got[-1][2], want[-1][2])
+            same = len({r[name]["last_digest"] for r in two}) == 1
+            moved = sum(not torch.equal(got[-1][2][k], got[0][2][k]) for k in got[0][2])
+            transfers = two[0][name]["transfers"]
+            out[f"f64_step_{name}"] = {
+                "loss_rel_err": loss, "update_err_over_max_update": upd, "stats_rel_err": stat,
+                "ranks_equal": same, "tensors_moved": moved, "transfers_rank0": transfers}
+            log(f"19a: one float64 step (cuDNN float64) of {SPATIAL_HEADS[name]} at batch "
+                f"{SPATIAL_HEADS_F64_BATCH}, 1 x {ranks} {backend} ranks against 1 rank on "
+                f"{DEVICE}: losses rel {loss:.2e} (bound {SPATIAL_F64_LIMITS[0]:g}), largest "
+                f"update error over the largest update {upd:.2e} (bound "
+                f"{SPATIAL_F64_LIMITS[1]:g}), running statistics {stat:.2e} (bound "
+                f"{SPATIAL_F64_LIMITS[2]:g}); ranks' states equal: {same}; {moved} tensors "
+                f"moved; rank 0's transfers {transfers}")
+            if not same or not moved or not all(e < lim for e, lim in
+                                                zip((loss, upd, stat), SPATIAL_F64_LIMITS)):
+                raise AssertionError(f"19a: the 1 x {ranks} float64 step of {name} is not the "
+                                     "1-rank step")
+        del two, one, runs, banded
+
+        # -- 19b: YOLOv3's bf16 recipe on 2 bands through the Solver; the checkpoint served
+        root = os.path.join(tmp, "voc_yolo_v3")
+        cfg = makers["yolo_v3"](root, os.path.join(tmp, "exp_sph"))
+        size = int(cfg.MODEL.IMAGE_SIZE[0])
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES, size=size)
+        cfg.TRAIN.update(MAX_EPOCHS=SPATIAL_EPOCHS, CHECKPOINTS_EPOCHS=1)
+        # a config file's key takes its default's type: an int (2587.5 -> 2588)
+        cfg.TRAIN.LR_SCHEDULER.WARM_UP_EPOCHS = round(cfg.TRAIN.LR_SCHEDULER.WARM_UP_EPOCHS)
+        cfg.PHASE = ["train"]
+        cfg.TPU.MESH.SPATIAL = ranks
+        cfg_path = os.path.join(tmp, "spatial_heads.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        prefix = os.path.join(tmp, "rank")
+        t0 = time.perf_counter()
+        proc = ddp_launch([os.path.join(REPO, "tests", "torch_port_ddp_worker.py"),
+                           "--lifecycle", cfg_path, "--out", prefix, "--device", sp_dev,
+                           "--backend", backend, "--synthetic-voc", f"{seed},{size}"], ranks)
+        out["lifecycle_s"] = time.perf_counter() - t0
+        if proc.returncode != 0 or proc.stdout.count("DDP_WORKER_OK") != ranks:
+            raise AssertionError(f"19b: the 1 x {ranks} lifecycle failed (rc {proc.returncode})"
+                                 f"\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        reports, states = [], []
+        for r in range(ranks):
+            with open(f"{prefix}.{r}.json") as f:
+                reports.append(json.load(f))
+            states.append(torch.load(f"{prefix}.{r}.pt", map_location="cpu"))
+        sc = reports[0]["scalars"]
+        values = [v for rep in reports for vals in rep["scalars"].values() for _, v in vals]
+        equal = all(torch.equal(st[k], states[0][k]) for st in states[1:] for k in states[0])
+        start = init_model(create_model(cfg.MODEL)[0], seed=0).state_dict()
+        still = [k for k in start if torch.equal(states[0][k], start[k])]
+        manifest = find_previous(cfg.EXP_DIR)
+        rep0 = reports[0]
+        out.update(epoch_loss=[l + c for (_, l), (_, c) in zip(sc["loss_loc"], sc["loss_conf"])],
+                   test_map=[rep["test_map"] for rep in reports], rank_states_equal=equal,
+                   tensors_moved=len(start) - len(still), tensors=len(start),
+                   manifest_epochs=manifest and manifest[0],
+                   nms_launches_ranks=sum(rep["nms_launches"] for rep in reports),
+                   train_step_ms_ranks=rep0["train_step_ms"],
+                   transfers_per_step={k: rep0[k] for k in ("halo_messages", "halo_bytes",
+                                                            "gather_messages", "gather_bytes")},
+                   allreduce_grads_ms=rep0.get("allreduce_grads_ms"))
+        log(f"19b: YOLOv3-DarkNet53-416 bf16 at batch {cfg.TRAIN.BATCH_SIZE} on 1 x {ranks} "
+            f"{backend} ranks, {SPATIAL_EPOCHS} epoch(s) in {out['lifecycle_s']:.1f} s: epoch "
+            f"losses {out['epoch_loss']}, test mAP by rank {out['test_map']}, manifest epochs "
+            f"{out['manifest_epochs']}, {out['tensors_moved']}/{len(start)} tensors moved, "
+            f"ranks' states equal: {equal}; NMS kernel launches in the ranks' test "
+            f"{out['nms_launches_ranks']}; a step's transfers from rank 0: "
+            f"{out['transfers_per_step']}")
+        if not all(np.isfinite(values)) or not equal or "base.0.0.weight" in still \
+                or "conf0.weight" in still \
+                or out["manifest_epochs"] != list(range(1, SPATIAL_EPOCHS + 1)) \
+                or len(set(out["test_map"])) != 1 \
+                or (torch.device(sp_dev).type == "cuda" and out["nms_launches_ranks"] <= 0):
+            raise AssertionError(f"19b: losses finite {all(np.isfinite(values))}, states equal "
+                                 f"{equal}, still {still[:8]}, manifest {out['manifest_epochs']}, "
+                                 f"test mAP {out['test_map']}, NMS kernel launches "
+                                 f"{out['nms_launches_ranks']}")
+        # one process serves the checkpoint: its weights are rank 0's; NMS through detect_decoded
+        dcfg = copy.deepcopy(cfg)
+        dcfg.TPU.MESH.SPATIAL = 1
+        dcfg.RESUME_CHECKPOINT = manifest[1][-1]
+        det = ObjectDetector(dcfg, device=dev)
+        imgs = list(np.random.default_rng(seed).integers(0, 256, (4, size, size, 3), np.uint8))
+        nms_mask.launches = 0
+        served = det.predict_batch(imgs, threshold=0.01)
+        torch.cuda.synchronize()
+        out["nms_launches_serve"] = nms_mask.launches
+        served_sd = det.model.state_dict()
+        same_weights = all(torch.equal(served_sd[k].cpu(), states[0][k].to(served_sd[k].dtype))
+                           for k in states[0])  # bf16 serving casts the convs once
+        x = torch.from_numpy(np.stack(imgs)).to(dev)
+        with torch.no_grad():
+            raw = det.forward(x)
+            rows = det.postprocess(raw)
+            with mock.patch.object(postprocess, "nms_mask", nms_mask_torch):
+                plain_rows = det.postprocess(raw)
+        identical = rows.shape == plain_rows.shape and bool(
+            ((rows == plain_rows) | (rows.isnan() & plain_rows.isnan())).all())
+        out.update(served_images=len(served), served_weights_equal=same_weights,
+                   served_boxes=int(raw[0].shape[1]), served_rows_identical=identical,
+                   served_rows_finite_share=float(torch.isfinite(rows).float().mean()))
+        log(f"19b: a 1-process ObjectDetector on the checkpoint serves {len(served)} images "
+            f"({out['served_boxes']} decoded boxes an image, NMS kernel launches "
+            f"{out['nms_launches_serve']} through detect_decoded); its weights are rank 0's (in "
+            f"its serving dtype): {same_weights}; detect rows identical with the kernel and the "
+            f"plain NMS: {identical} (NaN taken as equal to NaN; the finite share of the rows "
+            f"{out['served_rows_finite_share']:.4f}: one epoch leaves DarkNet-53's running "
+            "statistics near their init, which phase 12 saw blow the raw outputs up)")
+        if not same_weights or len(served) != len(imgs) or not identical \
+                or out["nms_launches_serve"] <= 0 or out["served_boxes"] != YOLO["yolo_v3"][0]:
+            raise AssertionError("19b: the checkpoint of the spatial run does not serve")
+        del det
+
+        # -- 19c: one process, the same recipe: the step's time
+        one = Solver(dcfg, device=dev, writer=ScalarWriter(), seed=seed)
+        try:
+            with mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed, size)}):
+                loader = one.get_loader("train")
+                one.build_state(len(loader))
+                one._train_step = one.make_train_step()
+                out["train_step_ms_one"] = train_step_ms(one)
+        finally:
+            one.close()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"19c ({card}): YOLOv3-DarkNet53-416 bf16 train step at batch {cfg.TRAIN.BATCH_SIZE}: "
+        f"1 x {ranks} {backend} ranks {out['train_step_ms_ranks']:.2f} ms (the ranks time-share "
+        f"the card; gloo stages every halo through the host), 1 process "
+        f"{out['train_step_ms_one']:.2f} ms, ratio "
+        f"{out['train_step_ms_ranks'] / out['train_step_ms_one']:.2f}; the gradients' "
+        f"all-reduce alone {out['allreduce_grads_ms']:.2f} ms; phase 19 {out['phase_s']:.1f} s")
+    return out
+
+
 def check_observability(seed, dev, card, log):
     """Phase 17: ``utils.profiler`` and ``Solver.visualize_epoch`` on SSD300-VGG16."""
     from ssds_tpu_torch.data import factory
@@ -2478,6 +2687,10 @@ def main(argv=None):
     # -- 18. the spatial axis: SSD300-VGG16 on 1 x 2 bands, and TPU.REMAT --------------
     spatial_axis = check_spatial(args.seed, dev, card, log)
     report["spatial"] = spatial_axis
+
+    # -- 19. the spatial axis for FSSD and YOLO: resizes and the reorg on bands ------
+    spatial_heads = check_spatial_heads(args.seed, dev, card, log)
+    report["spatial_heads"] = spatial_heads
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -2558,6 +2771,13 @@ def main(argv=None):
         "train_step_ms_one_plain", "train_step_ms_one_remat", "peak_mb_plain", "peak_mb_remat",
         "peak_above_resting_mb_plain", "peak_above_resting_mb_remat", "allreduce_grads_ms",
         "served_weights_equal", "lifecycle_s", "phase_s", "card")}}))
+    log(json.dumps({"spatial_heads": {k: spatial_heads[k] for k in (
+        "ranks", "backend", "device", "f64_step_fssd", "f64_step_yolo_v3", "f64_step_yolo_v2",
+        "f64_s", "epoch_loss", "test_map", "rank_states_equal", "tensors_moved",
+        "manifest_epochs", "nms_launches_ranks", "nms_launches_serve", "served_boxes",
+        "served_rows_identical", "served_rows_finite_share", "served_weights_equal",
+        "transfers_per_step", "train_step_ms_ranks", "train_step_ms_one", "allreduce_grads_ms",
+        "lifecycle_s", "phase_s", "card")}}))
     i8b = int8["bench"]["sums"][f"b{INT8_BATCHES[-1]}"]
     int8_shape = (f"SSD300-VGG16's {int8['int8_convs']} int8 convs and "
                   f"{int8['shapes'] - int8['int8_convs']} MobileNetV2 / DarkNet-53 shapes, "
@@ -2573,12 +2793,14 @@ def main(argv=None):
         head_paths[f"{path}_serve"] = zoo[name]["nms_launches_serve"]
         head_paths[f"{path}_train"] = zoo[name]["nms_launches_eval"] + \
             zoo[name]["nms_launches_test"]
-    log(f"chip_smoke: phases 1-18 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     head_paths["export_serve"] = export["nms_launches_export"]
     head_paths["export_sharded_serve"] = export["nms_launches_sharded"]
     head_paths["ssd_lite_mobilenetv2_ddp_eval"] = ddp["nms_launches_ranks"]
     head_paths["ssd300_vgg16_traced_serve"] = observability["nms_launches_traced"]
     head_paths["ssd300_vgg16_spatial_test"] = spatial_axis["nms_launches_ranks"]
+    head_paths["yolo_v3_spatial_test"] = spatial_heads["nms_launches_ranks"]
+    head_paths["yolo_v3_spatial_serve"] = spatial_heads["nms_launches_serve"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55",
@@ -2587,7 +2809,7 @@ def main(argv=None):
         + sum(y["nms_launches_serve"] for y in yolo.values())
         + zoo["resnet50"]["nms_launches_serve"] + zoo["ssd512"]["nms_launches_serve"]
         + export["nms_launches_export"] + export["nms_launches_sharded"]
-        + observability["nms_launches_traced"],
+        + observability["nms_launches_traced"] + spatial_heads["nms_launches_serve"],
         "launches_by_path": {"ssd300_vgg16_serve": launches,
                              "ssd_lite_mobilenetv2_serve": lite["nms_launches_serve"],
                              "ssd_lite_mobilenetv2_coco_serve": coco["nms_launches_serve"],

@@ -21,7 +21,8 @@ predictors SSDLite's.
 
 Names are the reference torch layout: ``base.{i}``, ``extras.{k}`` (the
 fusion extras, flat), ``transforms.{k}``, ``norm`` (the fusion BN),
-``pyramids.{k}``, ``loc.{k}``, ``conf.{k}``.
+``pyramids.{k}``, ``loc.{k}``, ``conf.{k}``; ``resizes.{k}``, a fusion
+source's resize, has no parameters.
 
 Precision: the JAX package's fusion BN has no ``dtype``, so under bf16 its
 float32 scale promotes the output to float32, and every layer after it (the
@@ -43,8 +44,8 @@ from ssds_tpu_torch.models.heads.common import (
     build_extras, conv_extra_spec, finalize, multibox, multibox_layers, run_extras, run_layers,
     sep_extra_spec, split_feature_layer)
 from ssds_tpu_torch.models.layers import (
-    Conv, ConvBNReLU, Float32BatchNorm, LayerSpec, SepConvBNReLU, build_layers, no_autocast,
-    resize_bilinear)
+    Conv, ConvBNReLU, Float32BatchNorm, LayerSpec, Resize, SepConvBNReLU, build_layers,
+    no_autocast)
 
 FUSION_CHANNELS = 256  # the reference's transform width
 
@@ -77,6 +78,7 @@ class FSSD(nn.Module):
         fusion_sources = [widths[t] for t in self.taps] + extra_widths
         self.transforms = nn.ModuleList(
             Conv(c, FUSION_CHANNELS, kernel=1, padding=0, relu=True) for c in fusion_sources)
+        self.resizes = nn.ModuleList(Resize() for _ in fusion_sources)  # no parameters
         fused = FUSION_CHANNELS * len(fusion_sources)
         self.norm = Float32BatchNorm(fused)
         self.pyramids, source_channels = build_layers(pyramid, fused)
@@ -96,10 +98,11 @@ class FSSD(nn.Module):
 
     def fuse(self, fusion_sources):
         """Each source through its transform, resized to the first source's
-        grid, concatenated: the fusion BN's input, in the compute dtype."""
+        grid (the first, already on it, passes unchanged, as JAX skips it),
+        concatenated: the fusion BN's input, in the compute dtype."""
         target = tuple(fusion_sources[0].shape[2:])
-        return torch.cat([resize_bilinear(t(s), target)
-                          for t, s in zip(self.transforms, fusion_sources)], dim=1)
+        return torch.cat([r(t(s), target) for t, r, s in
+                          zip(self.transforms, self.resizes, fusion_sources)], dim=1)
 
     def run_pyramid(self, y: torch.Tensor):
         """The pyramid blocks chained off the fusion BN's output; each

@@ -21,7 +21,8 @@ so an eval batch needs one forward for both its loss and its detections.
 
 Module names are the flax ones (``extras_0``, ``extras_route``,
 ``extras_t32``, ``extras_o16``, ``conf0``, ...): the scope words ``extras``
-and ``conf`` select them as they select the JAX package's, and
+and ``conf`` select them as they select the JAX package's (``reorg``,
+``upsample16`` and ``upsample8`` have no parameters), and
 ``ssds_tpu/torch_import.py`` places a ``.pth`` of this layout (a
 :class:`ConvSet`'s convs are ``ConvBNReLU_{k}``, flax's names, and a
 ``conf{k}`` conv's ``weight`` lands on flax's ``conf{k}/Conv_0/kernel``).
@@ -30,13 +31,13 @@ and ``conf`` select them as they select the JAX package's, and
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from ssds_tpu_torch.models.heads.common import run_layers
-from ssds_tpu_torch.models.layers import Conv, ConvBNReLU, LayerSpec, build_layers, resize_bilinear
+from ssds_tpu_torch.models.layers import Conv, ConvBNReLU, LayerSpec, Resize, build_layers
 from ssds_tpu_torch.ops.yolo import decode_scale
 
 # Default pixel anchors (YOLO papers, 416 input), high-res scale first.
@@ -58,6 +59,20 @@ def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
     b, c, h, w = x.shape
     x = x.reshape(b, c, h // block, block, w // block, block)
     return x.permute(0, 3, 5, 1, 2, 4).reshape(b, block * block * c, h // block, w // block)
+
+
+class Reorg(nn.Module):
+    """The reorg, :func:`space_to_depth`, as a module with no parameters: on
+    the spatial axis :func:`ssds_tpu_torch.parallel.spatial.partition`
+    gives it its rows' geometry (a 2-row window, stride 2, no padding) and
+    a banded forward, as it gives a conv."""
+
+    def __init__(self, block: int = 2):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return space_to_depth(x, self.block)
 
 
 def _leaky(cin: int, ch: int, kernel: int) -> ConvBNReLU:
@@ -115,6 +130,7 @@ class YOLO(nn.Module):
             self.extras_0 = _leaky(c32, 1024, 3)
             self.extras_1 = _leaky(1024, 1024, 3)
             self.extras_route = _leaky(c16, 64, 1)
+            self.reorg = Reorg(2)
             self.extras_2 = _leaky(4 * 64 + 1024, 1024, 3)
             self.conf0 = Conv(1024, out[0], 1, padding=0)
         else:
@@ -123,14 +139,22 @@ class YOLO(nn.Module):
             self.extras_o32 = _leaky(512, 1024, 3)
             self.conf2 = Conv(1024, out[-1], 1, padding=0)
             self.extras_r16 = _leaky(512, 256, 1)
+            self.upsample16 = Resize()
             self.extras_t16 = ConvSet(256 + c16, 256)
             self.extras_o16 = _leaky(256, 512, 3)
             self.conf1 = Conv(512, out[-2], 1, padding=0)
             self.extras_r8 = _leaky(256, 128, 1)
+            self.upsample8 = Resize()
             self.extras_t8 = ConvSet(128 + c8, 128)
             self.extras_o8 = _leaky(128, 256, 3)
             self.conf0 = Conv(256, out[-3], 1, padding=0)
         self._anchor_tensors: dict = {}
+
+    @property
+    def predictors(self) -> List[nn.Module]:
+        """The convs whose outputs the loss reads (``conf0`` ... highest
+        resolution first): the spatial axis gathers them whole."""
+        return [getattr(self, f"conf{k}") for k in range(len(self.num_anchors))]
 
     def anchor_tensors(self, device) -> list:
         """The per-scale ``[A, 2]`` float32 anchors on ``device`` (made once)."""
@@ -146,17 +170,17 @@ class YOLO(nn.Module):
         if self.version == 2:
             s16, s32 = sources[-2:]
             y = self.extras_1(self.extras_0(s32))
-            route = space_to_depth(self.extras_route(s16), 2)
+            route = self.reorg(self.extras_route(s16))
             y = self.extras_2(torch.cat([route, y], dim=1))
             outs, feats = [self.conf0(y)], [y]
         else:
             s8, s16, s32 = sources[-3:]
             t32 = self.extras_t32(s32)
             o32 = self.conf2(self.extras_o32(t32))
-            r16 = resize_bilinear(self.extras_r16(t32), s16.shape[2:])
+            r16 = self.upsample16(self.extras_r16(t32), s16.shape[2:])
             t16 = self.extras_t16(torch.cat([r16, s16], dim=1))
             o16 = self.conf1(self.extras_o16(t16))
-            r8 = resize_bilinear(self.extras_r8(t16), s8.shape[2:])
+            r8 = self.upsample8(self.extras_r8(t16), s8.shape[2:])
             t8 = self.extras_t8(torch.cat([r8, s8], dim=1))
             o8 = self.conf0(self.extras_o8(t8))
             outs, feats = [o8, o16, o32], [t8, t16, t32]

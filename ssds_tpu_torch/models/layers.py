@@ -16,7 +16,8 @@ state-dict names are those of the reference's ``conv_bn`` / ``conv_dw`` /
 
 The RFB heads' ``BasicConv`` (conv, BN, optional ReLU as named children
 ``.conv`` / ``.bn``) takes square, non-square (1x3, 3x1) and dilated kernels.
-:func:`resize_bilinear` is ``jax.image.resize``'s bilinear resize, and
+:func:`resize_bilinear` is ``jax.image.resize``'s bilinear resize (:class:`Resize`
+its module form, which the spatial axis splits by rows), and
 :func:`no_autocast` opens the float32 region of a head that runs part of its
 work in float32 whatever the compute dtype (FSSD after its fusion BN).
 
@@ -419,6 +420,16 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
         if w * out_h * (h + out_w) <= h * out_w * (w + out_h):
             return cols(rows(x))
         return rows(cols(x))
+
+
+class Resize(nn.Module):
+    """:func:`resize_bilinear` as a module with no parameters or buffers
+    (it adds no state-dict key), one a call site: on the spatial axis
+    :func:`ssds_tpu_torch.parallel.spatial.partition` gives it its global
+    heights and a banded forward, as it gives a conv."""
+
+    def forward(self, x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+        return resize_bilinear(x, size)
 
 
 def build_layers(specs: Sequence[LayerSpec],

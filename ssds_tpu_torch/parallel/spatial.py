@@ -13,28 +13,39 @@ rows.
 
 One generic mechanism, no code per model (:func:`partition`):
 
-- **Layer geometry.** Every ``nn.Conv2d`` and ``nn.MaxPool2d`` of the model
-  carries its rows' geometry (:class:`RowGeometry`: the global input height,
-  kernel, stride, padding, dilation, ``ceil_mode``), measured once by a
-  forward on the ``meta`` device. Its forward is swapped in place (the
+- **Layer geometry.** Every layer whose output row ``o`` reads a contiguous
+  window of input rows carries its rows' geometry, measured once by a
+  forward on the ``meta`` device: each ``nn.Conv2d`` and ``nn.MaxPool2d``
+  and YOLOv2's reorg (:class:`~ssds_tpu_torch.models.heads.yolo.Reorg`, a
+  2-row window of stride 2) a :class:`RowGeometry` (the global input
+  height, kernel, stride, padding, dilation, ``ceil_mode``), and each
+  bilinear resize (:class:`~ssds_tpu_torch.models.layers.Resize`: FSSD's
+  fusion, YOLOv3's upsamples) a :class:`WindowGeometry` (the global input
+  and output heights and each output row's window, read off the resize's
+  weight matrix, with no padding row). Its forward is swapped in place (the
   parameter and buffer names do not change) for one that, inside
-  :func:`active`, computes only the output rows this rank owns and pads its
-  rows itself: zero rows for a conv and -inf rows for a max pool, at the
-  global top and bottom edges only.
+  :func:`active`, computes only the output rows this rank owns: a conv or
+  a pool pads its rows itself (zero rows for a conv and -inf rows for a max
+  pool, at the global top and bottom edges only); a resize, a small
+  contraction, places the fetched rows in a zero map of the whole height
+  and keeps its rows of that map's resize, the whole map's rows bit for
+  bit.
 - **Row ownership.** Each map's rows are split over the ``S`` ranks as
   ``torch.tensor_split`` splits them (:func:`row_split`); deep maps are
   uneven and a rank may own no row of one, yet joins every exchange.
 - **Row fetch.** :class:`_FetchRows` brings the rows a layer's windows need
   from the ranks that own them; its backward sends each fetched row's
   gradient back to its owner, which adds it to its own.
-- **Head gather.** The last conv of each ``loc`` / ``conf`` predictor
-  gathers its output over the spatial group in global row order
-  (:class:`_GatherRows`), so the priors keep their (h, w, anchor) order and
-  the loss runs on whole images, the same on the ``S`` ranks; the gather's
-  backward keeps this rank's rows of the gradient.
+- **Head gather.** The last conv of each predictor (a model's
+  ``predictors`` declaration, as YOLO's ``conf0`` ..., else the SSD
+  family's ``loc`` / ``conf``) gathers its output over the spatial group in
+  global row order (:class:`_GatherRows`), so the priors keep their (h, w,
+  anchor) order and the loss runs on whole images, the same on the ``S``
+  ranks; the gather's backward keeps this rank's rows of the gradient.
 
 Everything else is pointwise on a band and stays local: activations,
-L2Norm, residual adds and the train-mode BatchNorm, whose statistics sum
+L2Norm, residual adds, channel concatenations of maps of one height (split
+alike) and the train-mode BatchNorm, whose statistics sum
 ``(count, sum x, sum x^2)`` over every rank with this rank's own pixels
 (:class:`ssds_tpu_torch.models.layers._GlobalBatchNorm`). The train step
 (:func:`ssds_tpu_torch.solver.build_train_step`) cuts the image rows, counts
@@ -42,8 +53,10 @@ each image's positives once and reduces the gradients itself.
 
 Transfers are point-to-point (:func:`_exchange`): ``batch_isend_irecv`` of
 device tensors on NCCL (a card a rank), and on gloo, which sends host
-tensors only, staged through the host. Families with a row-mixing op that is
-not a conv or a pool (:data:`UNSUPPORTED`) raise at Solver construction.
+tensors only, staged through the host. Every family of the port splits;
+an image height that does not divide by ``S`` raises, and a layer that
+cannot be split raises at :func:`partition` (nothing falls back to a whole
+map on one rank).
 """
 
 from __future__ import annotations
@@ -54,20 +67,15 @@ import functools
 import itertools
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, ClassVar, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
-# MODEL.SSDS -> the op that mixes rows across bands and is not a conv or a pool
-UNSUPPORTED = {
-    "fssd": "resize_bilinear (models/heads/fssd.py: the fusion's resize)",
-    "fssd_lite": "resize_bilinear (models/heads/fssd.py: the fusion's resize)",
-    "yolo_v3": "the upsample (resize_bilinear, models/heads/yolo.py)",
-    "yolo_v2": "reorg (models/heads/yolo.py)",
-}
+from ssds_tpu_torch.models.heads.yolo import Reorg
+from ssds_tpu_torch.models.layers import Resize, _resize_weights
 
 # transfers since the last reset: halo rows (forward and backward) and the head gather
 counters = {"halo_messages": 0, "halo_bytes": 0, "gather_messages": 0, "gather_bytes": 0}
@@ -91,17 +99,9 @@ def row_split(n: int, parts: int) -> List[Tuple[int, int]]:
 
 
 def check_model(model_cfg, spatial: int) -> None:
-    """What the JAX package checks, and what the port cannot split: a family
-    with a row-mixing op other than a conv or a pool raises
-    ``NotImplementedError`` naming it; an image height that does not divide
-    by ``spatial`` raises JAX's ``ValueError``
+    """What the JAX package checks: an image height that does not divide by
+    ``spatial`` raises its ``ValueError``
     (``ssds_tpu/parallel/sharding.py:134-140``)."""
-    op = UNSUPPORTED.get(str(model_cfg.SSDS))
-    if op is not None:
-        raise NotImplementedError(
-            f"TPU.MESH.SPATIAL={spatial} with MODEL.SSDS={model_cfg.SSDS!r}: {op} mixes rows "
-            "across the bands and is not split yet (ROADMAP.md, 'To port: the spatial axis "
-            "for FSSD and YOLO')")
     check_height(int(model_cfg.IMAGE_SIZE[0]), spatial)
 
 
@@ -151,6 +151,59 @@ class RowGeometry:
         (a 1x1 stride-1 unpadded layer): no transfer, no padding."""
         return self.span == 1 and self.stride == 1 and self.padding == 0
 
+    @property
+    def idle(self) -> int:
+        """The padding rows a rank with no output row computes: one window
+        (a conv refuses fewer rows than its kernel)."""
+        return self.span
+
+    def reads(self, o0: int, o1: int) -> Tuple[int, int]:
+        """The input rows ``[lo, hi)`` (possibly outside ``[0, height)``:
+        padding) that the output rows ``[o0, o1)``, ``o1 > o0``, read."""
+        return o0 * self.stride - self.padding, (o1 - 1) * self.stride - self.padding + self.span
+
+
+@dataclass(frozen=True)
+class WindowGeometry:
+    """A resampling layer's rows: output row ``o`` of ``out_height`` reads
+    the input rows ``windows[o] = [first, last + 1)`` of ``height``, never a
+    padding row; the windows' ends do not fall as ``o`` grows."""
+
+    height: int
+    out_height: int
+    windows: Tuple[Tuple[int, int], ...]
+    pad: ClassVar[float] = 0.0  # no padding row is made
+    idle: ClassVar[int] = 0  # a rank with no output row reads no row
+
+    def __post_init__(self):
+        starts, ends = zip(*self.windows)
+        if len(self.windows) != self.out_height or list(starts) != sorted(starts) \
+                or list(ends) != sorted(ends) or starts[0] < 0 or ends[-1] > self.height \
+                or any(a >= b for a, b in self.windows):
+            raise ValueError(f"not a window geometry: {self}")
+
+    @classmethod
+    def bilinear(cls, height: int, out_height: int) -> "WindowGeometry":
+        """The rows of :func:`resize_bilinear` from ``height`` to
+        ``out_height`` rows: each output row's nonzero weights."""
+        nonzero = _resize_weights(height, out_height) != 0  # [height, out_height]
+        first = nonzero.argmax(axis=0)
+        last = height - 1 - nonzero[::-1].argmax(axis=0)
+        return cls(height, out_height, tuple(zip(first.tolist(), (last + 1).tolist())))
+
+    @property
+    def local(self) -> bool:
+        """Whether each output row reads only the input row of its own index."""
+        return self.windows == tuple((o, o + 1) for o in range(self.height))
+
+    def reads(self, o0: int, o1: int) -> Tuple[int, int]:
+        """The input rows ``[lo, hi)`` that the output rows ``[o0, o1)``,
+        ``o1 > o0``, read."""
+        return self.windows[o0][0], self.windows[o1 - 1][1]
+
+
+Geometry = Union[RowGeometry, WindowGeometry]
+
 
 @dataclass(frozen=True)
 class Route:
@@ -161,7 +214,7 @@ class Route:
     ``(owner, start, end)`` in global input rows (the owner may be this
     rank); ``sends`` this rank's rows that another rank needs, each
     ``(peer, start, end)``; ``empty``: this rank owns no output row (it
-    computes one window of padding and keeps none of it)."""
+    computes ``geom.idle`` rows of padding and keeps none of it)."""
 
     own: Tuple[int, int]
     top: int
@@ -171,17 +224,15 @@ class Route:
     empty: bool
 
 
-def _need(geom: RowGeometry, out_rows: Tuple[int, int]) -> Tuple[int, int]:
+def _need(geom: Geometry, out_rows: Tuple[int, int]) -> Tuple[int, int]:
     """The input rows ``[lo, hi)`` (possibly outside ``[0, height)``) that
     the output rows ``[o0, o1)`` read; ``(0, 0)`` for no output row."""
     o0, o1 = out_rows
-    if o1 <= o0:
-        return 0, 0
-    return o0 * geom.stride - geom.padding, (o1 - 1) * geom.stride - geom.padding + geom.span
+    return geom.reads(o0, o1) if o1 > o0 else (0, 0)
 
 
 @functools.lru_cache(maxsize=None)
-def route(geom: RowGeometry, size: int, index: int) -> Route:
+def route(geom: Geometry, size: int, index: int) -> Route:
     """Rank ``index``'s route for ``geom`` among ``size`` spatial ranks."""
     owners = row_split(geom.height, size)
     outs = row_split(geom.out_height, size)
@@ -193,8 +244,8 @@ def route(geom: RowGeometry, size: int, index: int) -> Route:
     own = owners[index]
     lo, hi = _need(geom, outs[index])
     empty = outs[index][0] == outs[index][1]
-    if empty:  # one window of padding keeps the layer in the graph
-        top, bottom, a, b = geom.span, 0, 0, 0
+    if empty:  # a conv's window of padding keeps the layer in the graph
+        top, bottom, a, b = geom.idle, 0, 0, 0
     else:
         a, b = real(index)
         top, bottom = a - lo, hi - b
@@ -287,6 +338,8 @@ class _FetchRows(torch.autograd.Function):
         if route.bottom:
             parts.append(x.new_full((x.shape[0], x.shape[1], route.bottom, x.shape[3]), pad))
         ctx.route, ctx.plan, ctx.shape = route, plan, x.shape
+        if not parts:  # a resize's rank with no output row reads no row
+            return x.new_zeros((x.shape[0], x.shape[1], 0, x.shape[3]))
         return torch.cat(parts, dim=2)
 
     @staticmethod
@@ -332,10 +385,10 @@ class _GatherRows(torch.autograd.Function):
         return g[:, :, ctx.rows[0]:ctx.rows[1]], None, None
 
 
-def fetch_rows(x: torch.Tensor, geom: RowGeometry, plan: SpatialPlan) -> Tuple[torch.Tensor, bool]:
+def fetch_rows(x: torch.Tensor, geom: Geometry, plan: SpatialPlan) -> Tuple[torch.Tensor, bool]:
     """``(rows, empty)``: the rows ``geom``'s windows need on this rank, fetched
     from their owners and padded at the global edges; ``empty`` when this
-    rank owns no output row (``rows`` is then one window of padding)."""
+    rank owns no output row (``rows`` is then ``geom.idle`` rows of padding)."""
     r = route(geom, plan.size, plan.index)
     return _FetchRows.apply(x, r, plan, geom.pad), r.empty
 
@@ -398,23 +451,66 @@ def _pool_rows(module: nn.MaxPool2d, x):
     return y[:, :, :0] if empty else y
 
 
+def _window_rows(module: Reorg, x):
+    """A padding-free window layer (the reorg): its own forward on the
+    fetched rows."""
+    plan = _plan()
+    if plan is None:
+        return type(module).forward(module, x)
+    rows, empty = fetch_rows(x, module._spatial_rows, plan)
+    y = type(module).forward(module, rows)
+    return y[:, :, :0] if empty else y
+
+
+def _resize_rows(module: Resize, x, size):
+    """This rank's rows of the resize of the whole map to ``size``, whose
+    height (taken from a band) must be this rank's band of the output. The
+    fetched rows go into a map of the whole height, zero elsewhere (their
+    weights for these rows are zero), which is resized whole, then cut: the
+    whole map's contractions at the whole map's shapes, so its rows are the
+    whole map's bit for bit (a GEMM's summation order may change with its
+    shape), for a few MFLOP more a rank."""
+    plan = _plan()
+    if plan is None:
+        return type(module).forward(module, x, size)
+    geom = module._spatial_rows
+    o0, o1 = plan.rows(geom.out_height)
+    if int(size[0]) != o1 - o0:
+        raise ValueError(
+            f"resize to {tuple(size)} on spatial rank {plan.index}: its band of the "
+            f"{geom.out_height}-row output holds {o1 - o0} rows; the target must be a map of "
+            f"{geom.out_height} rows split into the same bands")
+    if geom.local:
+        rows, first = x, o0
+    else:
+        rows, _ = fetch_rows(x, geom, plan)
+        first = _need(geom, (o0, o1))[0]
+    whole = F.pad(rows, (0, 0, first, geom.height - first - rows.shape[2]))
+    return type(module).forward(module, whole, (geom.out_height, size[1]))[:, :, o0:o1]
+
+
 def _pair(v) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-def _input_heights(model: nn.Module, image_hw) -> Dict[str, int]:
-    """Each conv's and max pool's global input height, by module name, from
-    one forward of a ``meta`` copy of ``model`` (no weight is copied)."""
+# the layers whose output rows read a window of input rows
+ROW_LAYERS = (nn.Conv2d, nn.MaxPool2d, Resize, Reorg)
+
+
+def _input_heights(model: nn.Module, image_hw) -> Dict[str, Tuple[int, int]]:
+    """Each row layer's (:data:`ROW_LAYERS`) global input and output
+    heights, by module name, from one forward of a ``meta`` copy of
+    ``model`` (no weight is copied)."""
     memo = {}
     for t in itertools.chain(model.parameters(), model.buffers()):
         meta = torch.empty_like(t, device="meta")
         memo[id(t)] = nn.Parameter(meta, t.requires_grad) if isinstance(t, nn.Parameter) else meta
     twin = copy.deepcopy(model, memo)
-    heights: Dict[str, int] = {}
+    heights: Dict[str, Tuple[int, int]] = {}
     for name, m in twin.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.MaxPool2d)):
-            m.register_forward_pre_hook(
-                lambda mod, args, name=name: heights.__setitem__(name, args[0].shape[2]))
+        if isinstance(m, ROW_LAYERS):
+            m.register_forward_hook(lambda mod, args, y, name=name: heights.__setitem__(
+                name, (args[0].shape[2], y.shape[2])))
     twin.eval()
     dtype = next(model.parameters()).dtype
     with torch.no_grad():
@@ -423,34 +519,53 @@ def _input_heights(model: nn.Module, image_hw) -> Dict[str, int]:
     return heights
 
 
+def predictors(model: nn.Module) -> List[nn.Module]:
+    """The predictors whose outputs the loss reads: the model's
+    ``predictors`` declaration (YOLO's), else the SSD family's ``loc`` /
+    ``conf``."""
+    declared = getattr(model, "predictors", None)
+    if declared is not None:
+        return list(declared)
+    if all(isinstance(getattr(model, k, None), nn.ModuleList) for k in ("loc", "conf")):
+        return [*model.loc, *model.conf]
+    raise NotImplementedError(f"{type(model).__name__}: the spatial axis needs the predictors "
+                              "the loss reads (a `predictors` declaration, or loc / conf)")
+
+
 def partition(model: nn.Module, image_hw) -> int:
-    """Give every conv and max pool of ``model`` (an SSD-family model whose
-    predictors are ``model.loc`` / ``model.conf``) its rows' geometry at
-    ``image_hw`` and its banded forward; returns how many layers fetch rows.
-    Idempotent. Parameter and buffer names do not change."""
+    """Give every row layer (:data:`ROW_LAYERS`) of ``model`` its rows'
+    geometry at ``image_hw`` and its banded forward, and the last conv of
+    each of its :func:`predictors` the head gather; returns how many layers
+    fetch rows. Idempotent. Parameter and buffer names do not change."""
     if getattr(model, "_spatial_hw", None) == tuple(image_hw):
         return model._spatial_fetching
-    if not all(isinstance(getattr(model, k, None), nn.ModuleList) for k in ("loc", "conf")):
-        raise NotImplementedError(f"{type(model).__name__}: the spatial axis needs the SSD "
-                                  "family's loc / conf predictors")
+    heads = predictors(model)
     heights = _input_heights(model, image_hw)
     fetching = 0
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Conv2d, nn.MaxPool2d)) and name in heights:
-            fetching += not partition_layer(m, heights[name]).local
-    for head in (model.loc, model.conf):
-        for pred in head:
-            last = [m for m in pred.modules() if isinstance(m, nn.Conv2d)][-1]
-            last._spatial_gather = True
+        if isinstance(m, ROW_LAYERS) and name in heights:
+            fetching += not partition_layer(m, *heights[name]).local
+    for pred in heads:
+        last = [m for m in pred.modules() if isinstance(m, nn.Conv2d)][-1]
+        last._spatial_gather = True
     model._spatial_hw = tuple(image_hw)
     model._spatial_fetching = fetching
     return fetching
 
 
-def partition_layer(m: nn.Module, height: int) -> RowGeometry:
-    """Give one ``nn.Conv2d`` or ``nn.MaxPool2d`` its rows' geometry at the
-    global input ``height`` and its banded forward (a conv's
-    ``_conv_forward``, a pool's ``forward``); returns the geometry."""
+def partition_layer(m: nn.Module, height: int, out_height: Optional[int] = None) -> Geometry:
+    """Give one row layer (:data:`ROW_LAYERS`) its rows' geometry at the
+    global input ``height`` (a resize needs its ``out_height`` too) and its
+    banded forward (a conv's ``_conv_forward``, the others' ``forward``);
+    returns the geometry."""
+    if isinstance(m, Resize):
+        m._spatial_rows = WindowGeometry.bilinear(height, out_height)
+        m.forward = functools.partial(_resize_rows, m)
+        return m._spatial_rows
+    if isinstance(m, Reorg):
+        m._spatial_rows = RowGeometry(height, m.block, m.block)
+        m.forward = functools.partial(_window_rows, m)
+        return m._spatial_rows
     k, s, p, d = (_pair(v)[0] for v in (m.kernel_size, m.stride, m.padding, m.dilation))
     if isinstance(m, nn.Conv2d):
         if m.padding_mode != "zeros" or isinstance(m.padding, str):
@@ -484,6 +599,7 @@ def reduce_gradients(params: Sequence[torch.nn.Parameter], data_size: int) -> No
         at += n
 
 
-__all__ = ["RowGeometry", "Route", "SpatialPlan", "UNSUPPORTED", "active", "check_height",
-           "check_model", "counters", "fetch_rows", "gather_rows", "partition",
-           "partition_layer", "reduce_gradients", "reset_counters", "route", "row_split"]
+__all__ = ["RowGeometry", "Route", "SpatialPlan", "WindowGeometry", "active",
+           "check_height", "check_model", "counters", "fetch_rows", "gather_rows", "partition",
+           "partition_layer", "predictors", "reduce_gradients", "reset_counters", "route",
+           "row_split"]

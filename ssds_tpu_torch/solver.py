@@ -57,9 +57,13 @@ heads, counts each image's positives once, and the gradient is the sum of
 every rank's over ``D`` (no DDP wrapper). Eval, test and serving run whole
 images, sharded over the ranks as above.
 
+Every family splits on the spatial axis: FSSD's fusion resizes, YOLOv3's
+upsamples and YOLOv2's reorg fetch the rows their windows read from the
+other bands, as the convs do, and YOLO's predictors are gathered whole for
+its loss, which takes the images' size from the uncut batch.
+
 Differences from the JAX solver: every head is ported (SSD, SSDLite, FSSD,
-RFB, YOLOv2/v3); on the spatial axis FSSD and YOLO raise (their resize,
-upsample and reorg mix rows across bands). After a resume the port
+RFB, YOLOv2/v3). After a resume the port
 continues the LR schedule from the restored step, as
 ``ssds_tpu/solver.py:366-367`` intends; the JAX optimizer restarts its
 schedule count at 0 (ROADMAP.md §3).
@@ -607,7 +611,7 @@ class Solver:
     def make_train_step(self):
         device_aug = bool(self.cfg.DATASET.get("DEVICE_AUG", False))
         plan = None
-        if self.spatial_size > 1:  # the convs and pools on bands (inert outside the step)
+        if self.spatial_size > 1:  # the row layers on bands (inert outside the step)
             spatial.partition(self.model, self.img_hw)
             plan = spatial.SpatialPlan.for_rank(self.rank, self.world, self.spatial_size)
         return build_train_step(self._ddp or self.model, self.priors, self.optimizer,

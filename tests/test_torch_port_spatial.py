@@ -29,8 +29,10 @@ the bounds, and against one JAX step on a 1 x 4 mesh, updates within 1e-2
 rows belong, and the positives counted on each of the S ranks. (d) The row
 fetch alone, forward and backward, against the whole-map conv or pool at
 every row geometry of SSD300-VGG16 and SSDLite-MobileNetV2-300, and the head
-gather, with S ranks as threads on an in-process transport. (e) Families
-that cannot be split, and an image height that does not divide. REMAT: the
+gather, with S ranks as threads on an in-process transport. (e) The FSSD
+and YOLO families build and partition (their numbers:
+``tests/test_torch_port_spatial_heads.py``), and an image height that does
+not divide. REMAT: the
 step equals the plain step (losses exactly, updates and statistics within
 1e-6, the running statistics moved once a step) and JAX's REMAT step, in one
 process and at 1 x 2. The train CLI under ``torch.distributed.run`` at 1 x 2
@@ -60,7 +62,7 @@ from ssds_tpu.solver import configure_lr_scheduler as jax_sched
 from ssds_tpu.solver import configure_optimizer as jax_opt
 from ssds_tpu_torch.config import cfg_from_file, default_config, ssd_lite_mobilenetv2_config
 from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
-from ssds_tpu_torch.parallel import spatial
+from ssds_tpu_torch.parallel import sharding, spatial
 from ssds_tpu_torch.solver import (Solver, build_train_step, configure_lr_scheduler,
                                    configure_optimizer)
 from test_torch_port_ddp_lifecycle import _config as lifecycle_config
@@ -578,14 +580,42 @@ def test_partition_keeps_names_and_the_plain_forward(models):
 # -- (e): what cannot be split -------------------------------------------------
 
 
-@pytest.mark.parametrize("ssds", sorted(spatial.UNSUPPORTED))
-def test_unsplittable_families_raise_naming_the_op(ssds):
-    cfg = default_config()
-    cfg.MODEL.SSDS = ssds
+# each family with a row layer that is neither a conv nor a pool: a yml of
+# it, and the modules of that layer that fetch rows at its image size
+SPLIT_FAMILIES = {
+    "fssd": ("fssd_vgg16_train_voc.yml", {"resizes.1", "resizes.2"}),  # 19, 10 -> 38
+    "fssd_lite": ("fssd_lite_mobilenetv1_train_voc.yml", {"resizes.1", "resizes.2"}),
+    "yolo_v3": ("yolo_v3_mobilenetv1_train_voc.yml", {"upsample16", "upsample8"}),
+    "yolo_v2": ("yolo_v2_mobilenetv1_train_voc.yml", {"reorg"}),  # 26 -> 13
+}
+
+
+@pytest.mark.parametrize("ssds", sorted(SPLIT_FAMILIES))
+def test_fssd_and_yolo_families_build_and_partition_on_two_bands(ssds, monkeypatch):
+    """(e): a Solver of each family builds at ``SPATIAL: 2`` (as rank 0 of
+    two), and ``partition`` gives its resizes or its reorg a banded forward
+    that fetches rows, counted among the fetching layers, and keeps the
+    state-dict names of the unpartitioned model."""
+    yml, fetching = SPLIT_FAMILIES[ssds]
+    cfg = cfg_from_file(os.path.join(REPO, "experiments", "cfgs", yml))
+    assert cfg.MODEL.SSDS == ssds
     cfg.TPU.MESH.SPATIAL = 2
-    op = spatial.UNSUPPORTED[ssds].split(" ")[0]
-    with pytest.raises(NotImplementedError, match=op):
-        Solver(cfg, device="cpu")
+    monkeypatch.setattr(sharding, "world_size", lambda: 2)
+    solver = Solver(cfg, device="cpu")
+    try:
+        model = solver.model
+        names = list(model.state_dict())
+        assert names == list(create_model(cfg.MODEL)[0].state_dict())
+        count = spatial.partition(model, solver.img_hw)
+        geoms = {n: m._spatial_rows for n, m in model.named_modules()
+                 if hasattr(m, "_spatial_rows")}
+        new = {n for n, g in geoms.items()
+               if not isinstance(model.get_submodule(n), (nn.Conv2d, nn.MaxPool2d))}
+        assert {n for n in new if not geoms[n].local} == fetching
+        assert count == sum(not g.local for g in geoms.values())
+        assert list(model.state_dict()) == names
+    finally:
+        solver.close()
 
 
 def test_image_height_must_divide_by_the_spatial_axis():

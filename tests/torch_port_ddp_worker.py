@@ -28,10 +28,15 @@ Spatial runs (``tests/test_torch_port_spatial.py``, ``chip_smoke.py`` phase
 model is partitioned (``ssds_tpu_torch.parallel.spatial``) and not wrapped
 in DDP, each data group takes its rows of the global batch, and the step
 takes the spatial plan; the run's output adds the halo and gather transfers
-it made. ``remat`` runs the step under ``TPU.REMAT``. Two controls break the
-spatial step on purpose: ``zero_halo`` (each band padded with zeros where its
-neighbours' rows belong, and no halo gradient sent back) and
-``normaliser_copies`` (the positives counted once on each of the S ranks).
+it made. ``compact`` (a model too wide to write every rank's float64
+states) keeps rank 0's weights and biases as float32 differences from the
+run's start and no start, every other rank's state not at all, and adds
+each rank's ``last_digest`` of its last state (:func:`expand` rebuilds
+rank 0's steps). ``remat`` runs the step under ``TPU.REMAT``. Two controls
+break the spatial step on purpose: ``zero_halo`` (each band padded with
+zeros where its neighbours' rows belong, and no halo gradient sent back)
+and ``normaliser_copies`` (the positives counted once on each of the S
+ranks).
 
 ``--lifecycle`` (``tests/test_torch_port_ddp_lifecycle.py``, ``chip_smoke.py``
 phase 16c): the rank of a ``torch.distributed.run`` launch joins the group
@@ -212,6 +217,19 @@ def run_steps(run, world, rank, device):
         return {k: (v.detach().double() if v.is_floating_point() else v).cpu().clone()
                 for k, v in model.state_dict().items()}
 
+    compact, start = run.get("compact", False), run["state_dict"]
+
+    def keep(sd):
+        """A step's state: whole, or under ``compact`` on rank 0 with each
+        weight and bias as its float32 difference from the run's start
+        (another rank keeps none)."""
+        if not compact:
+            return sd
+        if rank:
+            return None
+        return {k: (v - start[k].double()).float() if k.endswith(("weight", "bias")) else v
+                for k, v in sd.items()}
+
     applied = []
     apply_params = augment_device.apply_params
 
@@ -233,7 +251,7 @@ def run_steps(run, world, rank, device):
     if run.get("zero_halo"):
         patches.append(mock.patch.object(spatial.SpatialPlan, "transfer",
                                          _zero_halo(spatial.SpatialPlan.transfer)))
-    out = [(None, None, snapshot())]
+    out = [(None, None, None if compact else snapshot())]
     spatial.reset_counters()
     with contextlib.ExitStack() as stack:
         for p in patches:
@@ -241,9 +259,36 @@ def run_steps(run, world, rank, device):
         for i in range(run["steps"]):
             m = step(local, run.get("start", 0) + i)
             ll, lc = solver.sharding.all_reduce_mean([m["loss_l"], m["loss_c"]])
-            out.append((ll, lc, snapshot()))
-    return {"steps": out, "applied": [type(p)(*(t.cpu() for t in p)) for p in applied],
-            "transfers": dict(spatial.counters)}
+            sd = snapshot()
+            out.append((ll, lc, keep(sd)))
+    result = {"steps": out, "applied": [type(p)(*(t.cpu() for t in p)) for p in applied],
+              "transfers": dict(spatial.counters)}
+    if compact:
+        result["last_digest"] = digest(sd)
+    return result
+
+
+def expand(run, out):
+    """Rank 0's steps of a ``compact`` run (``out``, its output) as
+    :func:`errors` takes them: the start (the run's state dict) and each
+    step's state, its weights and biases from their float32 differences, in
+    float64."""
+    start = {k: v.double() if v.is_floating_point() else v for k, v in run["state_dict"].items()}
+    return [(None, None, start)] + [
+        (ll, lc, {k: start[k] + d.double() if d.dtype == torch.float32 else d
+                  for k, d in sd.items()}) for ll, lc, sd in out["steps"][1:]]
+
+
+def digest(sd):
+    """A SHA-256 of a state dict's tensors, in key order: equal states,
+    equal digests."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 class RecordingWriter:

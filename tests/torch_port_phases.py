@@ -8,7 +8,9 @@ checkouts in alternating processes on one card.
 Phases: 8 (``check_training``, SSD300-VGG16), 11 (``check_heads``, FSSD and
 RFB), 12 (``check_yolo``, YOLOv3 and YOLOv2), 13 (``check_zoo``,
 SSD300-ResNet50, SSD512-VGG16 and the serving export), 16 (``check_ddp``,
-data-parallel SSDLite-MobileNetV2-300) and 17 (``check_observability``). Each process runs from a
+data-parallel SSDLite-MobileNetV2-300), 17 (``check_observability``), 18
+(``check_spatial``, SSD300-VGG16 on the spatial axis) and 19
+(``check_spatial_heads``, FSSD and YOLO on it). Each process runs from a
 checkout's root with that checkout's ``chip_smoke.py`` and port, builds the
 kernels and turns TF32 off as ``chip_smoke.main`` does, runs the phases in
 the order given and writes their numbers to ``DIR/{pair}-{tree}.json``
@@ -28,7 +30,8 @@ import numpy as np
 
 PHASES = {"8": ("training", "check_training"), "11": ("heads", "check_heads"),
           "12": ("yolo", "check_yolo"), "13": ("zoo", "check_zoo"), "16": ("ddp", "check_ddp"),
-          "17": ("observability", "check_observability")}
+          "17": ("observability", "check_observability"), "18": ("spatial", "check_spatial"),
+          "19": ("spatial_heads", "check_spatial_heads")}
 TIMES = ("train_step_ms", "eval_img_s", "predict_b1_p50_ms", "predict_b1_p90_ms",
          "predict_batch32_img_s")
 
