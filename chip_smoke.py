@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8, device-augmentation, data-parallel, observability and spatial (SSD, FSSD, YOLO) paths on one GPU.
+"""Drive the PyTorch/CUDA port's serving, conv, training, SSDLite, COCO, FSSD, RFB, YOLO, ResNet, SSD512, export, int8, device-augmentation, data-parallel, observability, spatial (SSD, FSSD, YOLO) and mAP-parity paths on one GPU.
 
     python3 chip_smoke.py [--seed 0] [--report PATH]
 
@@ -68,7 +68,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    as written, ``config.ssd_lite_mobilenetv2_coco_config()``: 81 classes, 3000
    priors, bf16, batch 64, SGD 0.01, sgdr with its warm-up, ``PROB`` 0.6,
    ``MAX_GT`` 128, ``TEST.BATCH_SIZE`` 64) over a synthetic COCO tree
-   (``tools.synth_coco``: JSON annotations on disk, 256 ``train2017`` and 128
+   (``tools.synth_coco``: JSON annotations on disk, 256 ``train2017`` and 64
    ``val2017`` images of 240-640 x 240-480 drawn in memory): the NMS kernel
    bit-identical to its plain version at ``[81, 200]`` and ``[5184, 200]``
    and timed there beside its bound; a train batch at ``PROB`` 0.6 differs
@@ -144,7 +144,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    in-process predict function's, ``predict``'s and ``predict_batch``'s. The
    artifact is exported for ``("cuda", "cpu")``: a fresh process moves it to
    the CPU (``load_exported(dir, device="cpu")``) and its rows at batches 1
-   and 3 are identical to an in-process CPU ``ObjectDetector``'s on the same
+   and 2 are identical to an in-process CPU ``ObjectDetector``'s on the same
    weights; ``load_exported_sharded`` over every card (two programs on card 0
    when there is one) gives at batch 32 one program's rows on the same pieces,
    the NMS kernel launched once a piece (one program's rows on the whole batch
@@ -184,12 +184,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    with one, 16a on one NCCL rank and 16b-c on two gloo ranks sharing card 0
    (NCCL refuses two ranks on one card). a. The port's train CLI
    (``python -m ssds_tpu_torch.tools.synth_voc ... train --cfg <json>``: the
-   train CLI with the images drawn in memory) for one epoch: rc 0 and one
-   manifest line. b. One float64 step (cuDNN float64) at global batch 8,
-   ranks against one rank on the same card (``tests/torch_port_ddp_worker.py``):
+   train CLI with the images drawn in memory) for one epoch, while 16b's
+   ranks run: rc 0 and one manifest line. b. One float64 step (cuDNN
+   float64) at global batch 8, ranks against one rank on the same card
+   (``tests/torch_port_ddp_worker.py``):
    losses within rtol 1e-6, every update within 1e-5 of the largest, every
    running statistic within 1e-9, the ranks' states equal. c. The bf16
-   recipe (batch 32 global, SGD, sgdr with warm-up) for 3 epochs with the
+   recipe (batch 32 global, SGD, sgdr with warm-up) for 1 epoch with the
    eval of the last merged over the ranks (``--lifecycle``): every loss
    finite, every rank the same eval and test mAP, a manifest line an epoch,
    every BatchNorm's running variance moved and equal on every rank; a
@@ -237,7 +238,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    checkpoint through ``detect_decoded`` with the NMS kernel's launches
    reset before and read after, its detect rows identical with the plain
    NMS; c. one process on the same recipe: the train step's time beside the
-   ranks' and the gradients' all-reduce alone (phase 18's caveat).
+   ranks' and the gradients' all-reduce alone (phase 18's caveat);
+20. the mAP-parity harness (``check_parity``; ``ssds_tpu_torch.tools.parity_check``)
+   and the export CLI's ``--check``: a. stage 1, the import audit, of phase
+   8's checkpoint against SSD300-VGG16 (its config written as JSON): healthy,
+   the four groups' counts printed; b. stage 3 on phase 8's synthetic VOC
+   test set: the mAP within ``MAP_TOLERANCE`` (0.001) of phase 8's resumed
+   ``test_model`` mAP, the NMS kernel's launches reset before and read
+   after; in fresh processes started together with phase 16 (16a-b time
+   nothing; they end before 16c): c. ``--selftest`` on
+   SSD300-VGG16 at full width on the card (rc 0, ``selftest OK``, the NMS
+   kernel's launches), d. ``--when-data --table-only`` with PyYAML hidden:
+   the six acceptance rows built at full width from the port's written-out
+   configs, e. ``python -m ssds_tpu_torch.export --check`` of SSD300-VGG16
+   on the card (rc 0, ``check ok``).
 
 Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
 ``{"coco": {...}}``, ``{"heads": {"fssd": {...}, "rfb": {...}}}``,
@@ -245,10 +259,10 @@ Before the last lines come ``{"training": {...}}``, ``{"lite": {...}}``,
 {...}, "ssd512": {...}}}`` and ``{"export": {...}}``, ``{"int8": {...}}``,
 ``{"device_aug": {...}}``, ``{"ddp": {...}}``, ``{"observability":
 {...}, "export_moved_sharded": {...}}``, ``{"spatial": {...}}`` and
-``{"spatial_heads": {...}}``, then ``{"kernels": [...]}`` (the NMS entry's
+``{"spatial_heads": {...}}``, ``{"parity": {...}}``, then ``{"kernels": [...]}`` (the NMS entry's
 ``launches`` counts phases 4, 9, 10, 11, 12, 13's, 17's and 19's serving,
-``launches_by_path`` every path, phase 16's ranks' eval and phase 18's and
-19's ranks' test too; ``int8_conv`` and
+``launches_by_path`` every path, phase 16's ranks' eval, phase 18's and
+19's ranks' test and phase 20's stage 3 and self-test too; ``int8_conv`` and
 ``quantize_act`` count phase 14's serving, their times summed over its shapes
 at batch 32), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX. In the kernels
@@ -260,8 +274,11 @@ sleep kernel: at a few µs a launch, back-to-back calls time the host); its
 from __future__ import annotations
 
 import argparse
+import atexit
+import concurrent.futures
 import contextlib
 import copy
+import faulthandler
 import json
 import os
 import shutil
@@ -318,7 +335,9 @@ LITE_PRIORS, LITE_BATCHNORMS, LITE_EPOCHS, LITE_F32_BATCH = 3000, 60, 5, 8
 LITE_UPDATE_TOL, LITE_STATS_RTOL = 3e-2, 5e-4
 # phase 10: SSDLite-MobileNetV2-300 on COCO (81 classes); the NMS kernel at
 # serving's [81, 200] and the eval's [64 x 81, 200]
-COCO_EPOCHS, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES = 3, 256, 128
+# (the val images were 128: 64 halve the two COCOevals over an untrained
+# model's ~8,000 detections an image, which keeps the script inside 800 s)
+COCO_EPOCHS, COCO_TRAIN_IMAGES, COCO_VAL_IMAGES = 3, 256, 64
 COCO_NMS_SHAPES = [(81, 200), (5184, 200)]
 # phase 11: FSSD-VGG16-300 and RFBNet-VGG16-300 (8732 priors each): epochs,
 # the float32 step's batch, and for each head its BatchNorm count (FSSD: the
@@ -358,7 +377,7 @@ ZOO_UPDATE_TOL, ZOO_STATS_RTOL = 2e-2, 5e-5
 EXPORT_BATCHES = (1, 3, 32)
 # ... exported for both device types; the CPU serves the moved program at
 # these batches (a bf16 SSD300 forward on the host's cores takes seconds)
-EXPORT_PLATFORMS, EXPORT_CPU_BATCHES = ("cuda", "cpu"), (1, 3)
+EXPORT_PLATFORMS, EXPORT_CPU_BATCHES = ("cuda", "cpu"), (1, 2)
 EXPORT_NMS_SHAPES = [(21, 200), (672, 200), (1344, 200)]
 # phase 14: int8 SSD300-VGG16 (VGG16's 15 convs, the 8 extras, 6 loc + 6 conf);
 # the kernels checked at batches 1 and 32; the float32 int8 forward card
@@ -373,7 +392,8 @@ AUG_STAT_IMAGES = 128
 # over the largest update, a running statistic's error as
 # tests/torch_port_ddp_worker.py::running_stats_err measures it); the merged
 # mAP against one process's
-DDP_EPOCHS, DDP_F64_BATCH, DDP_F64_LIMITS, DDP_MAP_TOL = 3, 8, (1e-6, 1e-5, 1e-9), 1e-3
+# (the epochs were 3: 1 keeps the whole script, with phase 20, inside 800 s)
+DDP_EPOCHS, DDP_F64_BATCH, DDP_F64_LIMITS, DDP_MAP_TOL = 1, 8, (1e-6, 1e-5, 1e-9), 1e-3
 # phase 17: profiler.timed against CUDA events
 TIMED_RTOL = 0.1
 # phase 18: the spatial axis (1 x 2); the float64 steps' batches (SSD300-VGG16,
@@ -387,6 +407,11 @@ SPATIAL_EPOCHS = 1
 SPATIAL_HEADS = {"fssd": "FSSD-VGG16-300", "yolo_v3": "YOLOv3-DarkNet53-416",
                  "yolo_v2": "YOLOv2-DarkNet19-416"}
 SPATIAL_HEADS_F64_BATCH = 2
+# phase 20: the parity harness's fresh processes (run at once) and their limit
+PARITY_TIMEOUT = 300
+# a run still going after this many seconds prints every thread's stack and
+# exits non-zero, inside the 1200 s the script is given
+WATCHDOG_S = 1150
 
 
 # (B, H, W, Cin, Cout) for phase 6: partial strips in W and partial row chunks
@@ -1143,23 +1168,29 @@ def check_export_moved(seed, served_dir, imgs, tmp, log):
 
     t0 = time.perf_counter()
     rows_path = os.path.join(tmp, "rows_cpu.npz")
-    proc = subprocess.run([sys.executable, "-c", EXPORT_SERVER, served_dir,
-                           os.path.join(tmp, "imgs.npy"), rows_path, REPO, "cpu",
-                           ",".join(map(str, EXPORT_CPU_BATCHES))],
-                          capture_output=True, text=True, timeout=600, cwd=REPO,
-                          env=dict(os.environ, PYTHONPATH=REPO))
+    proc = subprocess.Popen([sys.executable, "-c", EXPORT_SERVER, served_dir,
+                             os.path.join(tmp, "imgs.npy"), rows_path, REPO, "cpu",
+                             ",".join(map(str, EXPORT_CPU_BATCHES))],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=dict(os.environ, PYTHONPATH=REPO))
+    try:  # the in-process rows while the process serves
+        cpu = ObjectDetector(default_config(), device="cpu", seed=seed)
+        unpruned = Predict(cpu.model, cpu.means, cpu.priors,
+                           dataclasses.replace(cpu.post, pre_nms_top_n=0), cpu.dtype)
+        with torch.no_grad():
+            wants = {b: unpruned(torch.from_numpy(imgs[:b])).numpy() for b in EXPORT_CPU_BATCHES}
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     if proc.returncode != 0:
-        raise AssertionError(f"the CPU serving process failed:\n{proc.stderr[-4000:]}")
-    served = json.loads(proc.stdout.strip().splitlines()[-1])
+        raise AssertionError(f"the CPU serving process failed:\n{stderr[-4000:]}")
+    served = json.loads(stdout.strip().splitlines()[-1])
     if served["meta"]["device"] != "cpu" or served["meta"]["platforms"] != list(EXPORT_PLATFORMS):
         raise AssertionError(f"the moved program's meta: {served['meta']}")
-    cpu = ObjectDetector(default_config(), device="cpu", seed=seed)
-    unpruned = Predict(cpu.model, cpu.means, cpu.priors,
-                       dataclasses.replace(cpu.post, pre_nms_top_n=0), cpu.dtype)
     with np.load(rows_path) as f:
-        for b in EXPORT_CPU_BATCHES:
-            with torch.no_grad():
-                want = unpruned(torch.from_numpy(imgs[:b])).numpy()
+        for b, want in wants.items():
             if not np.array_equal(f[str(b)], want):
                 d = float(np.abs(f[str(b)] - want).max())
                 raise AssertionError(f"the program moved to the CPU at batch {b}: rows != the "
@@ -1874,19 +1905,58 @@ def ddp_layout():
     return (count, "cuda", "nccl") if count > 1 else (2, DEVICE, "gloo")
 
 
-def check_ddp(seed, dev, card, log):
-    """Phase 16: data-parallel SSDLite-MobileNetV2-300 (see the docstring)."""
-    from ssds_tpu_torch.checkpoint import find_previous
-    from ssds_tpu_torch.data import factory
+def check_ddp_f64(seed, lite, tmp, worker, ranks, ddp_dev, backend, log):
+    """Phase 16b: one float64 step of ``lite``'s model, ``ranks`` ranks
+    against one on the same card (``tests/torch_port_ddp_worker.py``);
+    returns the errors."""
     from ssds_tpu_torch.data.factory import load_data
     from ssds_tpu_torch.models.builder import create_model, create_priors, init_model
+
+    collect, errors, launch = worker.collect, worker.errors, worker.launch
+    model, fmaps = create_model(lite.MODEL)
+    model = init_model(model, seed=seed)
+    loader = load_data(lite.DATASET, "train", image_size=lite.MODEL.IMAGE_SIZE,
+                       batch_size=DDP_F64_BATCH)
+    batch = next(iter(loader))
+    loader.close()
+    run = {"lite300": dict(model=lite.MODEL, train_cfg=lite.TRAIN,
+                           state_dict=model.state_dict(),
+                           priors=create_priors(lite.MODEL, fmaps),
+                           batch={k: batch[k] for k in ("images", "boxes", "labels", "valid")},
+                           steps=1, means=tuple(lite.DATASET.PIXEL_MEANS))}
+    t0 = time.perf_counter()
+    started = [launch(tmp, "f64_two", run, ranks, device=ddp_dev, backend=backend),
+               launch(tmp, "f64_one", run, 1, device=DEVICE, backend="gloo")]
+    two, one = (collect(*st) for st in started)
+    loss, upd, _ = errors(two[0]["lite300"]["steps"], one[0]["lite300"]["steps"])[0]
+    stat = worker.running_stats_err(two[0]["lite300"]["steps"][-1][2],
+                                    one[0]["lite300"]["steps"][-1][2])
+    same = all(torch.equal(two[0]["lite300"]["steps"][-1][2][k], r["lite300"]["steps"][-1][2][k])
+               for r in two[1:] for k in two[0]["lite300"]["steps"][-1][2])
+    out = {"loss_rel_err": loss, "update_err_over_max_update": upd, "stats_rel_err": stat,
+           "ranks_equal": same, "s": time.perf_counter() - t0}
+    log(f"16b: one float64 step (cuDNN float64) of SSDLite-MobileNetV2-300 at global batch "
+        f"{DDP_F64_BATCH}, {ranks} {backend} ranks against 1 rank on {DEVICE}: losses rel "
+        f"{loss:.2e} (bound {DDP_F64_LIMITS[0]:g}), largest update error over the largest "
+        f"update {upd:.2e} (bound {DDP_F64_LIMITS[1]:g}), running statistics {stat:.2e} "
+        f"(a mean in units of its std, a variance relative to itself; bound "
+        f"{DDP_F64_LIMITS[2]:g}); ranks' states equal: {same}")
+    if not same or not all(e < lim for e, lim in zip((loss, upd, stat), DDP_F64_LIMITS)):
+        raise AssertionError(f"16b: the {ranks}-rank float64 step is not the 1-rank step")
+    return out
+
+
+def check_ddp(seed, dev, card, log, before_lifecycle=None):
+    """Phase 16: data-parallel SSDLite-MobileNetV2-300 (see the docstring);
+    ``before_lifecycle()`` runs before 16c, whose steps are timed."""
+    from ssds_tpu_torch.checkpoint import find_previous
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.models.builder import create_model, init_model
     from ssds_tpu_torch.models.layers import BatchNorm
-    from ssds_tpu_torch.ops.cuda.nms import nms_mask
     from ssds_tpu_torch.solver import Solver
     from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
 
     worker = ddp_worker()
-    collect, errors, launch = worker.collect, worker.errors, worker.launch
     t_phase = time.perf_counter()
     ranks, ddp_dev, backend = ddp_layout()
     count = torch.cuda.device_count()
@@ -1899,18 +1969,28 @@ def check_ddp(seed, dev, card, log):
         root = os.path.join(tmp, "VOCdevkit")
         write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
 
-        # -- 16a: the train CLI under torch.distributed.run, NCCL, one epoch
+        # -- 16a: the train CLI under torch.distributed.run, NCCL, one epoch; it
+        # runs while 16b's ranks do (its seconds are the CLI's, not a step's)
         cfg = lite_config(root, os.path.join(tmp, "exp_cli"))
         cfg.TRAIN.update(MAX_EPOCHS=1, CHECKPOINTS_EPOCHS=1)
         cfg.PHASE = ["train"]
         cfg_path = os.path.join(tmp, "cli.json")
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
-        t0 = time.perf_counter()
-        proc = ddp_launch(["-m", "ssds_tpu_torch.tools.synth_voc", "--seed", str(seed),
-                           "--size", "300", "train", "--cfg", cfg_path,
-                           "--device", torch.device(DEVICE).type], count)
-        out["cli_s"] = time.perf_counter() - t0
+
+        def train_cli():
+            t0 = time.perf_counter()
+            proc = ddp_launch(["-m", "ssds_tpu_torch.tools.synth_voc", "--seed", str(seed),
+                               "--size", "300", "train", "--cfg", cfg_path,
+                               "--device", torch.device(DEVICE).type], count)
+            return proc, time.perf_counter() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cli = pool.submit(train_cli)
+            f64 = check_ddp_f64(seed, lite_config(root, os.path.join(tmp, "exp_f64")), tmp,
+                                worker, ranks, ddp_dev, backend, log)
+            proc, out["cli_s"] = cli.result()
+        out["f64_step"] = f64
         manifest = find_previous(cfg.EXP_DIR)
         if proc.returncode != 0 or manifest is None or manifest[0] != [1]:
             raise AssertionError(f"16a: the train CLI on {count} NCCL rank(s): rc "
@@ -1921,41 +2001,9 @@ def check_ddp(seed, dev, card, log):
             f"ssds_tpu_torch.tools.synth_voc ... train (the port's train CLI, NCCL): rc 0 in "
             f"{out['cli_s']:.1f} s, manifest {manifest[0]}, {epoch_lines}")
 
-        # -- 16b: one float64 step, 2 ranks against 1 on the same card
-        lite = lite_config(root, os.path.join(tmp, "exp_f64"))
-        model, fmaps = create_model(lite.MODEL)
-        model = init_model(model, seed=seed)
-        loader = load_data(lite.DATASET, "train", image_size=lite.MODEL.IMAGE_SIZE,
-                           batch_size=DDP_F64_BATCH)
-        batch = next(iter(loader))
-        loader.close()
-        run = {"lite300": dict(model=lite.MODEL, train_cfg=lite.TRAIN,
-                               state_dict=model.state_dict(),
-                               priors=create_priors(lite.MODEL, fmaps),
-                               batch={k: batch[k] for k in ("images", "boxes", "labels", "valid")},
-                               steps=1, means=tuple(lite.DATASET.PIXEL_MEANS))}
-        t0 = time.perf_counter()
-        started = [launch(tmp, "f64_two", run, ranks, device=ddp_dev, backend=backend),
-                   launch(tmp, "f64_one", run, 1, device=DEVICE, backend="gloo")]
-        two, one = (collect(*st) for st in started)
-        loss, upd, _ = errors(two[0]["lite300"]["steps"], one[0]["lite300"]["steps"])[0]
-        stat = worker.running_stats_err(two[0]["lite300"]["steps"][-1][2],
-                                        one[0]["lite300"]["steps"][-1][2])
-        same = all(torch.equal(two[0]["lite300"]["steps"][-1][2][k], r["lite300"]["steps"][-1][2][k])
-                   for r in two[1:] for k in two[0]["lite300"]["steps"][-1][2])
-        out["f64_step"] = {"loss_rel_err": loss, "update_err_over_max_update": upd,
-                           "stats_rel_err": stat, "ranks_equal": same,
-                           "s": time.perf_counter() - t0}
-        log(f"16b: one float64 step (cuDNN float64) of SSDLite-MobileNetV2-300 at global batch "
-            f"{DDP_F64_BATCH}, {ranks} {backend} ranks against 1 rank on {DEVICE}: losses rel "
-            f"{loss:.2e} (bound {DDP_F64_LIMITS[0]:g}), largest update error over the largest "
-            f"update {upd:.2e} (bound {DDP_F64_LIMITS[1]:g}), running statistics {stat:.2e} "
-            f"(a mean in units of its std, a variance relative to itself; bound "
-            f"{DDP_F64_LIMITS[2]:g}); ranks' states equal: {same}")
-        if not same or not all(e < lim for e, lim in zip((loss, upd, stat), DDP_F64_LIMITS)):
-            raise AssertionError(f"16b: the {ranks}-rank float64 step is not the 1-rank step")
-
-        # -- 16c: the bf16 recipe, 3 epochs, the last eval merged over the ranks
+        # -- 16c: the bf16 recipe, DDP_EPOCHS, the last eval merged over the ranks
+        if before_lifecycle is not None:
+            before_lifecycle()
         lite = lite_config(root, os.path.join(tmp, "exp_ddp"))
         lite.TRAIN.update(MAX_EPOCHS=DDP_EPOCHS, CHECKPOINTS_EPOCHS=1)
         lite.TEST.TEST_SCOPE = [DDP_EPOCHS, DDP_EPOCHS]
@@ -2388,6 +2436,155 @@ def check_spatial_heads(seed, dev, card, log):
     return out
 
 
+# a CLI as ``python -m`` runs it, in this process: then the NMS kernel's
+# launches, whether PyYAML was loaded ("noyaml" hides it first) and the seconds
+PARITY_CLI = r"""
+import json, runpy, sys, time
+t0 = time.perf_counter()
+if sys.argv[1] == "noyaml":
+    sys.modules["yaml"] = None  # as on a machine without PyYAML
+from ssds_tpu_torch.ops.cuda.nms import nms_mask
+module, sys.argv = sys.argv[2], sys.argv[2:]
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+print(json.dumps({"nms_launches": nms_mask.launches, "yaml": sys.modules.get("yaml") is not None,
+                  "s": time.perf_counter() - t0}))
+"""
+
+
+def parity_cli(args, tmp, name, noyaml=False):
+    """Start ``python -m <args>`` through ``PARITY_CLI`` in a fresh process,
+    its output to files in ``tmp``; returns ``(process, stdout path, stderr
+    path)``."""
+    paths = [os.path.join(tmp, f"{name}.{s}") for s in ("out", "err")]
+    with open(paths[0], "w") as out, open(paths[1], "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", PARITY_CLI,
+                                 "noyaml" if noyaml else "-", *args],
+                                stdout=out, stderr=err, cwd=REPO,
+                                env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2"))
+    return proc, *paths
+
+
+def start_parity_clis(tmp):
+    """Phase 20c-e: start ``--selftest``, ``--when-data --table-only`` (PyYAML
+    hidden) and ``export --check`` of SSD300-VGG16 in fresh processes, their
+    files in ``tmp``; returns ``{name: parity_cli(...)}``."""
+    from ssds_tpu_torch.config import default_config
+
+    vgg_json = os.path.join(tmp, "ssd_vgg16_default.json")
+    with open(vgg_json, "w") as f:
+        json.dump(default_config(), f)
+    return {
+        "selftest": parity_cli(["ssds_tpu_torch.tools.parity_check", "--selftest",
+                                "--device", "cuda"], tmp, "selftest"),
+        "table": parity_cli(["ssds_tpu_torch.tools.parity_check", "--when-data",
+                             "--table-only", "--device", "cuda"], tmp, "table", noyaml=True),
+        "export": parity_cli(["ssds_tpu_torch.export", "--cfg", vgg_json, "--out",
+                              os.path.join(tmp, "served"), "--device", "cuda", "--check"],
+                             tmp, "export"),
+    }
+
+
+def wait_parity_clis(started):
+    """Wait (up to ``PARITY_TIMEOUT`` each) for :func:`start_parity_clis`'
+    processes to exit, reading nothing."""
+    for proc, _, _ in started.values():
+        try:
+            proc.wait(timeout=PARITY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            pass  # parity_result reports it
+
+
+def parity_result(started, what):
+    """Wait for a :func:`parity_cli` process; raise unless it exited 0.
+    Returns ``(stdout, its last line as JSON)``."""
+    proc, out, err = started
+    try:
+        rc = proc.wait(timeout=PARITY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{what}: no exit within {PARITY_TIMEOUT} s")
+    with open(out) as f, open(err) as e:
+        stdout, stderr = f.read(), e.read()
+    if rc != 0:
+        raise AssertionError(f"{what}: rc {rc}\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    return stdout, json.loads(stdout.strip().splitlines()[-1])
+
+
+def check_parity(seed, dev, card, log, checkpoint, test_map, started=None):
+    """Phase 20: the mAP-parity harness (``ssds_tpu_torch.tools.parity_check``)
+    on phase 8's checkpoint (``checkpoint``; its resumed ``test_model`` mAP
+    ``test_map``) and test set, its self-test and acceptance table in fresh
+    processes, and the export CLI's ``--check``: those three
+    :func:`start_parity_clis` ``started`` (``main`` starts them with phase 16,
+    whose 16a-b time nothing), or starts now. Returns the numbers."""
+    from ssds_tpu_torch.data import factory
+    from ssds_tpu_torch.ops.cuda.nms import nms_mask
+    from ssds_tpu_torch.tools import parity_check
+    from ssds_tpu_torch.tools.synth_voc import in_memory_voc, write_voc
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        if started is None:  # c-e: fresh processes, started together, while a-b run here
+            started = start_parity_clis(tmp)
+        # a. stage 1 on phase 8's checkpoint, the config as JSON (no PyYAML)
+        root, exp = os.path.join(tmp, "VOCdevkit"), os.path.join(tmp, "exp")
+        write_voc(root, seed, TRAIN_IMAGES, TEST_IMAGES)
+        cfg_path = os.path.join(tmp, "ssd_vgg16_synthetic.json")
+        with open(cfg_path, "w") as f:
+            json.dump(training_config(root, exp), f)
+        cfg = parity_check.load_cfg(cfg_path)
+        t0 = time.perf_counter()
+        sd, audit = parity_check.stage_import(cfg, checkpoint)
+        out["audit"] = {g: len(getattr(audit, g)) for g in audit._fields}
+        out["stage1_s"] = time.perf_counter() - t0
+        if not audit.healthy:
+            raise AssertionError(f"stage 1 on phase 8's checkpoint is unhealthy: {out['audit']}")
+        # b. stage 3 on phase 8's synthetic test set
+        t0 = time.perf_counter()
+        with mock.patch.dict(factory.dataset_map, {"voc": in_memory_voc(seed)}):
+            nms_mask.launches = 0
+            out["stage3_map"] = parity_check.stage_map(cfg, sd, dev)
+            torch.cuda.synchronize()
+            out["nms_launches_stage3"] = nms_mask.launches
+        out["stage3_s"] = time.perf_counter() - t0
+        out["test_map_phase8"] = test_map
+        out["map_diff"] = abs(out["stage3_map"] - test_map)
+        log(f"parity stage 1 on phase 8's checkpoint: {out['audit']} (healthy) in "
+            f"{out['stage1_s']:.1f} s; stage 3 on its {TEST_IMAGES} test images: mAP "
+            f"{out['stage3_map']:.4f} against phase 8's test_model {test_map:.4f} (|d| "
+            f"{out['map_diff']:.2e}, tolerance {parity_check.MAP_TOLERANCE}), "
+            f"{out['nms_launches_stage3']} nms kernel launches, {out['stage3_s']:.1f} s")
+        if out["map_diff"] > parity_check.MAP_TOLERANCE or out["nms_launches_stage3"] <= 0:
+            raise AssertionError(f"parity stage 3: mAP {out['stage3_map']} against {test_map}, "
+                                 f"{out['nms_launches_stage3']} nms launches")
+        # c. the self-test on SSD300-VGG16, d. the table without PyYAML, e. export --check
+        stdout, res = parity_result(started["selftest"], "parity_check --selftest")
+        if "selftest OK" not in stdout or res["nms_launches"] <= 0:
+            raise AssertionError(f"parity_check --selftest: {res}\n{stdout[-2000:]}")
+        out["nms_launches_selftest"], clis_s = res["nms_launches"], [res["s"]]
+        stdout, res = parity_result(started["table"], "parity_check --when-data --table-only")
+        rows = [ln for ln in stdout.splitlines() if ln.startswith("   ok   ")]
+        if len(rows) != len(parity_check.ACCEPTANCE) or res["yaml"] or "(no PyYAML)" not in rows[0]:
+            raise AssertionError(f"the acceptance table: {len(rows)} rows, PyYAML {res['yaml']}"
+                                 f"\n{stdout[-3000:]}")
+        out["table_rows"] = len(rows)
+        clis_s.append(res["s"])
+        stdout, res = parity_result(started["export"], "export --check")
+        check = [ln for ln in stdout.splitlines() if ln.startswith("check ok")]
+        if not check:
+            raise AssertionError(f"export --check printed no 'check ok':\n{stdout[-2000:]}")
+        out["export_check"], out["clis_s"] = check[-1], max(clis_s + [res["s"]])
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parity --selftest (SSD300-VGG16, fresh process): selftest OK, "
+        f"{out['nms_launches_selftest']} nms kernel launches; --when-data --table-only without "
+        f"PyYAML: {out['table_rows']} rows built at full width; export --check: "
+        f"{out['export_check']}; the slowest of the three processes {out['clis_s']:.1f} s; "
+        f"phase 20 {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def check_observability(seed, dev, card, log):
     """Phase 17: ``utils.profiler`` and ``Solver.visualize_epoch`` on SSD300-VGG16."""
     from ssds_tpu_torch.data import factory
@@ -2501,6 +2698,7 @@ def main(argv=None):
                         help="also write every number of the run to this JSON file")
     args = parser.parse_args(argv)
     t_start = time.perf_counter()
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
 
     # -- 1. inventory ---------------------------------------------------------
     log(f"python {sys.version.split()[0]}  torch {torch.__version__}  cuda {torch.version.cuda}")
@@ -2641,7 +2839,8 @@ def main(argv=None):
                   stencil_launches_main_path=stencil_launches)
 
     # -- 8. the training path -------------------------------------------------
-    keep = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 8's checkpoint, for phase 14
+    keep = tempfile.mkdtemp(prefix="chip_smoke_")  # phase 8's checkpoint, for phases 14 and 20
+    atexit.register(shutil.rmtree, keep, True)
     training = check_training(args.seed, dev, card, log, keep_dir=keep)
     report["training"] = training
 
@@ -2666,10 +2865,7 @@ def main(argv=None):
     report["zoo"] = zoo
 
     # -- 14. int8 serving of SSD300-VGG16 (MODEL.QUANT) --------------------------
-    try:
-        int8 = check_int8(args.seed, dev, card, log, training["checkpoint"])
-    finally:
-        shutil.rmtree(keep, ignore_errors=True)
+    int8 = check_int8(args.seed, dev, card, log, training["checkpoint"])
     report["int8"] = int8
 
     # -- 15. SSDLite-MobileNetV2-300 COCO with DATASET.DEVICE_AUG -----------------
@@ -2677,7 +2873,12 @@ def main(argv=None):
     report["device_aug"] = device_aug
 
     # -- 16. data-parallel SSDLite-MobileNetV2-300 ----------------------------------
-    ddp = check_ddp(args.seed, dev, card, log)
+    # phase 20's fresh processes run beside 16a-b, which time nothing, and end before 16c
+    parity_tmp = tempfile.mkdtemp(prefix="chip_smoke_parity_")
+    atexit.register(shutil.rmtree, parity_tmp, True)
+    parity_clis = start_parity_clis(parity_tmp)
+    ddp = check_ddp(args.seed, dev, card, log,
+                    before_lifecycle=lambda: wait_parity_clis(parity_clis))
     report["ddp"] = ddp
 
     # -- 17. observability: traces, timed, visualize_epoch ---------------------------
@@ -2691,6 +2892,12 @@ def main(argv=None):
     # -- 19. the spatial axis for FSSD and YOLO: resizes and the reorg on bands ------
     spatial_heads = check_spatial_heads(args.seed, dev, card, log)
     report["spatial_heads"] = spatial_heads
+
+    # -- 20. the mAP-parity harness and the export CLI's --check -------------------
+    parity = check_parity(args.seed, dev, card, log, training["checkpoint"],
+                          training["test_map"], parity_clis)
+    report["parity"] = parity
+    shutil.rmtree(keep, ignore_errors=True)
     if args.report:
         os.makedirs(os.path.dirname(args.report) or ".", exist_ok=True)
         with open(args.report, "w") as f:
@@ -2778,6 +2985,10 @@ def main(argv=None):
         "served_rows_identical", "served_rows_finite_share", "served_weights_equal",
         "transfers_per_step", "train_step_ms_ranks", "train_step_ms_one", "allreduce_grads_ms",
         "lifecycle_s", "phase_s", "card")}}))
+    log(json.dumps({"parity": {k: parity[k] for k in (
+        "audit", "stage1_s", "stage3_map", "test_map_phase8", "map_diff", "nms_launches_stage3",
+        "stage3_s", "nms_launches_selftest", "table_rows", "export_check", "clis_s", "phase_s",
+        "card")}}))
     i8b = int8["bench"]["sums"][f"b{INT8_BATCHES[-1]}"]
     int8_shape = (f"SSD300-VGG16's {int8['int8_convs']} int8 convs and "
                   f"{int8['shapes'] - int8['int8_convs']} MobileNetV2 / DarkNet-53 shapes, "
@@ -2793,7 +3004,7 @@ def main(argv=None):
         head_paths[f"{path}_serve"] = zoo[name]["nms_launches_serve"]
         head_paths[f"{path}_train"] = zoo[name]["nms_launches_eval"] + \
             zoo[name]["nms_launches_test"]
-    log(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     head_paths["export_serve"] = export["nms_launches_export"]
     head_paths["export_sharded_serve"] = export["nms_launches_sharded"]
     head_paths["ssd_lite_mobilenetv2_ddp_eval"] = ddp["nms_launches_ranks"]
@@ -2801,6 +3012,8 @@ def main(argv=None):
     head_paths["ssd300_vgg16_spatial_test"] = spatial_axis["nms_launches_ranks"]
     head_paths["yolo_v3_spatial_test"] = spatial_heads["nms_launches_ranks"]
     head_paths["yolo_v3_spatial_serve"] = spatial_heads["nms_launches_serve"]
+    head_paths["parity_stage3"] = parity["nms_launches_stage3"]
+    head_paths["parity_selftest"] = parity["nms_launches_selftest"]
     log(json.dumps({"kernels": [{
         "name": "nms_mask", "route": "cuda", "source": "ssds_tpu_torch/csrc/nms.cu",
         "replaces": "ssds_tpu/ops/pallas/nms.py:55",
@@ -2874,6 +3087,7 @@ def main(argv=None):
         "launches_export": sum(v[0] for v in int8["export_int8_launches"].values()),
     }]}))
     log(card)
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),
           flush=True)
 

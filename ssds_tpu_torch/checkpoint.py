@@ -23,7 +23,7 @@ import os
 import queue
 import re
 import threading
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -158,6 +158,38 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     raw = torch.load(path, map_location="cpu", weights_only=True)
     sd = raw["state_dict"] if isinstance(raw.get("state_dict"), Mapping) else raw
     return {k[7:] if k.startswith("module.") else k: v for k, v in sd.items()}
+
+
+class Audit(NamedTuple):
+    """A checkpoint's keys against a model's (:func:`audit_state_dict`), each
+    group in the order its source lists them."""
+
+    matched: List[str]
+    missing: List[str]  # in the model, not in the checkpoint
+    unexpected: List[str]  # in the checkpoint, not in the model
+    shape_mismatched: List[str]  # in both, of other shapes
+
+    @property
+    def healthy(self) -> bool:
+        return bool(self.matched) and not (self.missing or self.unexpected
+                                           or self.shape_mismatched)
+
+
+def audit_state_dict(model_sd: Mapping[str, torch.Tensor],
+                     ckpt_sd: Mapping[str, torch.Tensor]) -> Audit:
+    """Sort a checkpoint's keys against a model's state dict; BatchNorm's
+    ``num_batches_tracked`` counters, which the reference's files may lack,
+    count in no group."""
+    skip = lambda k: k.endswith("num_batches_tracked")  # noqa: E731
+    model_keys = [k for k in model_sd if not skip(k)]
+    ckpt_keys = [k for k in ckpt_sd if not skip(k)]
+    return Audit(
+        matched=[k for k in model_keys
+                 if k in ckpt_sd and tuple(ckpt_sd[k].shape) == tuple(model_sd[k].shape)],
+        missing=[k for k in model_keys if k not in ckpt_sd],
+        unexpected=[k for k in ckpt_keys if k not in model_sd],
+        shape_mismatched=[k for k in model_keys
+                          if k in ckpt_sd and tuple(ckpt_sd[k].shape) != tuple(model_sd[k].shape)])
 
 
 def resume_checkpoint(state_dict: Mapping[str, torch.Tensor], path: str,

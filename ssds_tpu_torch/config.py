@@ -162,7 +162,7 @@ def ssd_lite_mobilenetv2_coco_config() -> AttrDict:
 
 
 def _voc_config(ssds: str, feature_layer, scope: str, name: str) -> AttrDict:
-    """The shared body of ``experiments/cfgs/{fssd,rfb}_vgg16_train_voc.yml``,
+    """The shared body of ``experiments/cfgs/{ssd,fssd,rfb}_vgg16_train_voc.yml``,
     ``ssd_vgg16_train_voc_512.yml`` and ``ssd_resnet50_train_voc.yml``."""
     cfg = default_config()
     cfg.MODEL.update(SSDS=ssds, FEATURE_LAYER=feature_layer,
@@ -175,6 +175,15 @@ def _voc_config(ssds: str, feature_layer, scope: str, name: str) -> AttrDict:
     cfg.LOG_DIR = f"./experiments/models/{name}/logs"
     cfg.CHECKPOINTS_PREFIX = name
     return cfg
+
+
+def ssd_vgg16_config() -> AttrDict:
+    """``experiments/cfgs/ssd_vgg16_train_voc.yml`` (SSD300-VGG16 on VOC07+12: the
+    default model with the yml's sizes, scopes and sgdr schedule) over the
+    defaults, written out for machines without PyYAML.
+    ``tests/test_torch_port_parity_check.py`` holds it equal to the file."""
+    return _voc_config("ssd", default_config().MODEL.FEATURE_LAYER, "base,norm,extras,loc,conf",
+                       "ssd_vgg16_voc")
 
 
 def fssd_vgg16_config() -> AttrDict:
@@ -222,6 +231,25 @@ def yolo_v3_darknet53_config() -> AttrDict:
                             [[2], [2], [2]], 16, "yolo_v3_darknet53_voc")
 
 
+def yolo_v3_darknet53_coco_config() -> AttrDict:
+    """``experiments/cfgs/yolo_v3_darknet_53_train_coco.yml`` (YOLOv3-DarkNet53-416
+    on COCO 2017, 81 classes, batch 64) over the defaults, written out for
+    machines without PyYAML. ``tests/test_torch_port_parity_check.py`` holds it
+    equal to the file."""
+    cfg = yolo_v3_darknet53_config()
+    cfg.MODEL.NUM_CLASSES = cfg.POST_PROCESS.NUM_CLASSES = 81
+    cfg.TRAIN.update(MAX_EPOCHS=250, BATCH_SIZE=64, TRAINABLE_SCOPE="base,extras,loc,conf")
+    cfg.TRAIN.OPTIMIZER.update(LEARNING_RATE=0.01, WEIGHT_DECAY=4e-5)
+    cfg.TRAIN.LR_SCHEDULER.WARM_UP_EPOCHS = 5
+    cfg.TEST.update(BATCH_SIZE=64, TEST_SCOPE=[240, 250])
+    cfg.DATASET.update(DATASET="coco", DATASET_DIR="./data/coco",
+                       TRAIN_SETS=[["2017", "train"]], TEST_SETS=[["2017", "val"]], MAX_GT=128)
+    cfg.EXP_DIR = "./experiments/models/yolo_v3_darknet_53_coco"
+    cfg.LOG_DIR = "./experiments/models/yolo_v3_darknet_53_coco/logs"
+    cfg.CHECKPOINTS_PREFIX = "yolo_v3_darknet_53_coco"
+    return cfg
+
+
 def yolo_v2_darknet19_config() -> AttrDict:
     """``experiments/cfgs/yolo_v2_darknet_19_train_voc.yml`` (YOLOv2-DarkNet19-416
     on VOC07+12, batch 32), as :func:`yolo_v3_darknet53_config`."""
@@ -266,6 +294,17 @@ MODELS = {
     "yolo_v2": ("YOLOv2-DarkNet19-416", yolo_v2_darknet19_config),
     "resnet50": ("SSD300-ResNet50", ssd_resnet50_config),
     "ssd512": ("SSD512-VGG16", ssd512_vgg16_config),
+}
+
+#: ``experiments/cfgs/<yml>`` -> the maker that writes it out, for the ymls
+#: of the mAP-parity table (``ssds_tpu_torch.tools.parity_check.ACCEPTANCE``)
+YML_MAKERS = {
+    "ssd_vgg16_train_voc.yml": ssd_vgg16_config,
+    "ssd_vgg16_train_voc_512.yml": ssd512_vgg16_config,
+    "fssd_vgg16_train_voc.yml": fssd_vgg16_config,
+    "rfb_vgg16_train_voc.yml": rfb_vgg16_config,
+    "ssd_lite_mobilenetv2_train_coco.yml": ssd_lite_mobilenetv2_coco_config,
+    "yolo_v3_darknet_53_train_coco.yml": yolo_v3_darknet53_coco_config,
 }
 
 #: process-global singleton, for reference-API parity

@@ -10,7 +10,10 @@ validity mask, so each phase runs at one batch shape.
 - Worker processes are forked, as torch's ``DataLoader`` forks them: the
   augmentation's numpy/Python parts hold the GIL, so threads cannot spread
   it. The workers run the dataset and numpy only; they never touch CUDA.
-  :meth:`DetectionLoader.close` ends them.
+  At most two batches a worker are in flight; :meth:`DetectionLoader.close`
+  waits for those, then ends the workers (``Pool.terminate`` deadlocks when
+  a worker is still writing a batch into the result pipe: the pool stops
+  reading it first).
 - Train batches drop the last partial batch; eval batches pad the last one
   by wrapping around and the eval keeps the true image count.
 - ``dataset_map`` holds ``voc`` (:class:`~ssds_tpu_torch.data.voc.VOCDetection`)
@@ -20,9 +23,12 @@ validity mask, so each phase runs at one batch shape.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import os
 import random
 import sys
+import time
 from typing import Iterator
 
 import numpy as np
@@ -72,7 +78,10 @@ def truncation_stats(samples, max_gt: int):
 
 
 # -- fork-pool plumbing: the children inherit the dataset, batches come back
-# pickled (batches this module's own workers made)
+# pickled (batches this module's own workers made); _AHEAD batches a worker
+# are queued ahead of the consumer; close() waits up to _CLOSE_WAIT_S for them
+# (a worker that died loses its batch, which never arrives)
+_AHEAD, _CLOSE_WAIT_S = 2, 120.0
 _WORKER_DATASET = None
 _WORKER_MAX_GT = None
 
@@ -83,6 +92,13 @@ def _worker_init(dataset, max_gt, seed):
     _WORKER_MAX_GT = max_gt
     random.seed((os.getpid() * 1000003) ^ seed)
     np.random.seed((os.getpid() * 7919 + seed) % (2**32))
+
+
+def _wait_for(results):
+    """Wait up to ``_CLOSE_WAIT_S`` in all for ``AsyncResult`` s to arrive."""
+    deadline = time.monotonic() + _CLOSE_WAIT_S
+    for r in results:
+        r.wait(max(0.0, deadline - time.monotonic()))
 
 
 def _worker_make_batch(task):
@@ -119,6 +135,8 @@ class DetectionLoader:
         self.seed = seed
         self.epoch = 0
         self._pool = None
+        # each live iteration's batches in the pool not yet taken, in order
+        self._inflight = {}
         self.gt_dropped_last_epoch = 0
         self.gt_max_seen = 0
         self._warned_truncation = False
@@ -204,29 +222,34 @@ class DetectionLoader:
             return
 
         pool = self._get_pool()
-        # results stream back in completion order; a small buffer restores
-        # batch order (bounded by the pool size)
-        results = {}
-        next_bi = 0
+        tasks = enumerate(batches)
+        key = object()
+        inflight = self._inflight.setdefault(key, collections.deque())
         try:
-            for bi, batch, stats in pool.imap_unordered(_worker_make_batch,
-                                                        list(enumerate(batches))):
+            for task in itertools.islice(tasks, _AHEAD * self.num_workers):
+                inflight.append(pool.apply_async(_worker_make_batch, (task,)))
+            while inflight:
+                _, batch, stats = inflight[0].get()
+                inflight.popleft()
+                for task in itertools.islice(tasks, 1):
+                    inflight.append(pool.apply_async(_worker_make_batch, (task,)))
                 self._note_truncation(*stats)
-                results[bi] = batch
-                while next_bi in results:
-                    yield results.pop(next_bi)
-                    next_bi += 1
+                yield batch
         except Exception as e:
             self.close()
             raise RuntimeError("data worker failed") from e
-        while next_bi < len(batches):
-            yield results.pop(next_bi)
-            next_bi += 1
+        finally:  # left early (its generator closed): its batches in flight arrive first
+            _wait_for(inflight)
+            self._inflight.pop(key, None)
         self._finish_epoch_accounting()
 
     def close(self) -> None:
-        """End the worker processes (a later iteration starts new ones)."""
+        """End the worker processes (a later iteration starts new ones),
+        once the batches in flight have arrived (none is then being written
+        into the pool's result pipe, which ``terminate`` stops reading)."""
         if self._pool is not None:
+            _wait_for(itertools.chain(*self._inflight.values()))
+            self._inflight.clear()
             self._pool.terminate()
             self._pool.join()
             self._pool = None

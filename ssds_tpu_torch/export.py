@@ -49,16 +49,21 @@ convs the operators ``ssds_tpu_torch::quantize_act`` and ``int8_conv``
 (``csrc/int8_conv.cu`` on the card), which the loader registers too.
 
     python -m ssds_tpu_torch.export --cfg <yml> --out DIR [--batch N] [--device cuda]
-                                    [--platforms cuda,cpu]
+                                    [--platforms cuda,cpu] [--check]
+
+``--check`` reloads the artifact and holds its rows bit for bit equal to the
+in-process detector's on seeded images (:func:`check_exported`).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.utils._pytree as pytree
 from torch.export.passes import move_to_device_pass
@@ -212,6 +217,30 @@ def load_exported_sharded(in_dir: str, devices=None):
     return predict, meta
 
 
+def check_exported(det, out_dir: str, batch=None, device=None, seed: int = 0) -> str:
+    """Reload the artifact in ``out_dir`` (moved to ``device``) and hold its
+    rows on seeded uint8 images (``batch`` of them, or 2) equal to ``det``'s
+    in-process predict function at the same batch: unpruned for a symbolic
+    batch (which takes no prune, ``postprocess._static_ge``), ``det``'s own
+    for a fixed one. Raises ``AssertionError`` on any difference; returns
+    the message it prints."""
+    from ssds_tpu_torch.detector import Predict  # not at import: a server loads no model code
+
+    predict, meta = load_exported(out_dir, device=device)
+    b = int(batch) if batch else _EXAMPLE_BATCH
+    h, w = det.img_hw
+    imgs = np.random.default_rng(seed).integers(0, 256, (b, h, w, 3), dtype=np.uint8)
+    direct = det.predictor if meta["batch"] != "symbolic" else Predict(
+        det.model, det.means, det.priors, dataclasses.replace(det.post, pre_nms_top_n=0),
+        det.dtype)
+    with torch.no_grad():
+        served = predict(torch.from_numpy(imgs).to(meta["device"])).cpu().numpy()
+        want = direct(torch.from_numpy(imgs).to(det.device)).cpu().numpy()
+    np.testing.assert_array_equal(served, want)
+    return (f"check ok: served == in-process on {served.shape} ({meta['device']}, "
+            f"batch {meta['batch']}, platforms {meta['platforms']})")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Export a detector's predict program "
                                                  "(torch.export) for serving.")
@@ -225,6 +254,9 @@ def main(argv=None):
                              "(default: the --device's)")
     parser.add_argument("--seed", type=int, default=0,
                         help="random weights when the config names no RESUME_CHECKPOINT")
+    parser.add_argument("--check", action="store_true",
+                        help="reload the artifact and hold its rows equal to the in-process "
+                             "detector's on seeded images")
     args = parser.parse_args(argv)
 
     from ssds_tpu_torch.config import cfg_from_file
@@ -235,6 +267,8 @@ def main(argv=None):
                           platforms=[p for p in args.platforms.split(",") if p] or None)
     print(f"exported {det.cfg.MODEL.SSDS}/{det.cfg.MODEL.NETS} to {out} "
           f"(batch {'symbolic' if args.batch is None else args.batch}, {det.device})")
+    if args.check:
+        print(check_exported(det, out, batch=args.batch, device=args.device))
 
 
 if __name__ == "__main__":

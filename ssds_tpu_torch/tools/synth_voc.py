@@ -46,15 +46,17 @@ def sample(seed: int, index: int, size: int = 300):
 
 
 def write_voc(root: str, seed: int, n_trainval: int = 64, n_test: int = 32, size: int = 300,
-              year: str = "2007") -> None:
+              year: str = "2007", draw=sample) -> None:
     """``{root}/VOC{year}``: an annotation for every image, ``trainval.txt``
     listing images ``0 .. n_trainval - 1`` and ``test.txt`` the next
-    ``n_test``. No image files."""
+    ``n_test`` (with ``n_test = 0``, the same images as ``trainval.txt``: an
+    overfit set). No image files. ``draw(seed, index, size)`` gives an image
+    and its objects, as :func:`sample` does."""
     voc = os.path.join(root, "VOC" + year)
     os.makedirs(os.path.join(voc, "Annotations"), exist_ok=True)
     os.makedirs(os.path.join(voc, "ImageSets", "Main"), exist_ok=True)
     for i in range(n_trainval + n_test):
-        _, objects = sample(seed, i, size)
+        _, objects = draw(seed, i, size)
         ann = ET.Element("annotation")
         sz = ET.SubElement(ann, "size")
         ET.SubElement(sz, "width").text = str(size)
@@ -67,19 +69,19 @@ def write_voc(root: str, seed: int, n_trainval: int = 64, n_test: int = 32, size
             for tag, v in zip(("xmin", "ymin", "xmax", "ymax"), box):
                 ET.SubElement(bb, tag).text = str(v)
         ET.ElementTree(ann).write(os.path.join(voc, "Annotations", f"{i:06d}.xml"))
-    for split, ids in (("trainval", range(n_trainval)),
-                       ("test", range(n_trainval, n_trainval + n_test))):
+    test = range(n_trainval, n_trainval + n_test) if n_test else range(n_trainval)
+    for split, ids in (("trainval", range(n_trainval)), ("test", test)):
         with open(os.path.join(voc, "ImageSets", "Main", split + ".txt"), "w") as f:
             f.write("".join(f"{i:06d}\n" for i in ids))
 
 
-def in_memory_voc(seed: int, size: int = 300):
-    """A :class:`VOCDetection` subclass whose images come from :func:`sample`
-    (to put in ``data.factory.dataset_map['voc']``)."""
+def in_memory_voc(seed: int, size: int = 300, draw=sample):
+    """A :class:`VOCDetection` subclass whose images come from ``draw``
+    (:func:`sample`; to put in ``data.factory.dataset_map['voc']``)."""
 
     class InMemoryVOC(VOCDetection):
         def _read_image(self, img_id) -> np.ndarray:
-            return sample(seed, int(img_id[1]), size)[0]
+            return draw(seed, int(img_id[1]), size)[0]
 
     return InMemoryVOC
 

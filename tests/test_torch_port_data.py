@@ -14,6 +14,7 @@ AP and mAP equal on a synthetic VOC tree.
 import contextlib
 import os
 import random
+import threading
 from unittest import mock
 
 import numpy as np
@@ -103,6 +104,35 @@ def test_loader_batches_equal_jax(kw, workers):
     finally:
         ours.close()
     assert ours._pool is None
+
+
+class _BigSamples:
+    """Batches of ~2 MB, more than a pipe holds: a worker writing one blocks
+    until the pool reads it."""
+
+    def __len__(self):
+        return 64
+
+    def __getitem__(self, i):
+        return np.full((300, 300, 3), i, np.uint8), np.array([[1, 1, 5, 5, 1]], np.float32)
+
+
+def test_a_partly_read_loader_closes():
+    """A loader with workers read for one batch, then closed (as a caller
+    that takes one batch does), ends its workers: ``Pool.terminate`` with a
+    batch still being written into the result pipe deadlocked (``chip_smoke.py``
+    phase 16b, which takes one batch, hung there; on the CPU 1 ``close`` in
+    a few dozen did). Each ``close`` gets 60 s in a thread."""
+    for _ in range(12):
+        loader = factory.DetectionLoader(_BigSamples(), batch_size=8, max_gt=4, shuffle=True,
+                                         drop_last=True, num_workers=4)
+        first = next(iter(loader))
+        assert first["images"].shape == (8, 300, 300, 3)
+        closing = threading.Thread(target=loader.close, daemon=True)
+        closing.start()
+        closing.join(60)
+        assert not closing.is_alive(), "DetectionLoader.close hung"
+        assert loader._pool is None and not loader._inflight
 
 
 def test_loader_warns_once_on_truncation(capsys):

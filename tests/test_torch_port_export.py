@@ -16,7 +16,9 @@ scores and normalised boxes, rows matched per image and class as sets) of
 the JAX package's ``export_detector`` / ``load_exported`` rows for the same
 weights, carried by the bridge; a fixed-batch artifact (batch 5 keeps the
 prune, as eager serving does) and ``export.json``; the loader and the
-export CLI in fresh processes, the loader importing no model module; the
+export CLI in fresh processes, the loader importing no model module, the
+CLI's ``--check`` passing on what it wrote (symbolic and fixed batch) and
+``check_exported`` failing on another seed's artifact; the
 NMS operator's fake implementation; and the eager path calling the wrapper
 while only an export traces the operator, with the same rows either way.
 
@@ -50,6 +52,7 @@ from ssds_tpu_torch.config import default_config
 from ssds_tpu_torch.detector import ObjectDetector, Predict
 from ssds_tpu_torch.export import (
     _devices_in,
+    check_exported,
     export_detector,
     load_exported,
     load_exported_sharded,
@@ -232,6 +235,34 @@ def test_cli_exports_and_the_loader_imports_no_model_module(tmp_path):
                              "ssds_tpu_torch.ops.boxes", "ssds_tpu_torch.ops.cuda",
                              "ssds_tpu_torch.ops.cuda.int8_conv", "ssds_tpu_torch.ops.cuda.nms",
                              "ssds_tpu_torch.ops.nms", "ssds_tpu_torch.ops.quant"]
+
+
+@pytest.mark.parametrize("batch", [None, 5], ids=["symbolic", "batch5"])
+def test_cli_check_in_a_fresh_process(batch, tmp_path):
+    """``python -m ssds_tpu_torch.export --check`` reloads what it wrote and
+    holds its rows equal to the in-process detector's (unpruned for the
+    symbolic batch, pruned at a fixed batch of 5): rc 0 and ``check ok``."""
+    yml = tmp_path / "tiny.yml"
+    yml.write_text(CFG.replace("MAX_DETECTIONS: 10}", "MAX_DETECTIONS: 10, PRE_NMS_TOP_N: 16}"))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-m", "ssds_tpu_torch.export", "--cfg", str(yml),
+                           "--out", str(tmp_path / "served"), "--device", "cpu", "--check"]
+                          + ([] if batch is None else ["--batch", str(batch)]),
+                          env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    b = batch or 2
+    assert f"check ok: served == in-process on ({b}, 4, 10, 5)" in proc.stdout, proc.stdout
+
+
+def test_check_fails_on_another_seeds_artifact(pairs, tmp_path):
+    """``check_exported`` passes on the detector's own artifact and raises
+    ``AssertionError`` on one exported from another seed's weights."""
+    det = pairs["ssd_lite"][1]
+    own = export_detector(det, str(tmp_path / "own"))
+    assert check_exported(det, own).startswith("check ok")
+    other = ObjectDetector(_ssd_lite(default_config()), device="cpu", seed=1)
+    with pytest.raises(AssertionError):
+        check_exported(det, export_detector(other, str(tmp_path / "other")))
 
 
 def test_nms_op_fake_implementation_and_cpu_kernel():

@@ -59,7 +59,8 @@ def test_port_imports_no_jax_flax_yaml_or_cv2():
                    "ssds_tpu_torch.parallel.spatial",
                    "ssds_tpu_torch.utils.profiler", "ssds_tpu_torch.utils.timer",
                    "ssds_tpu_torch.utils.visualize", "ssds_tpu_torch.utils.summary",
-                   "ssds_tpu_torch.demo"):
+                   "ssds_tpu_torch.demo", "ssds_tpu_torch.tools.parity_check",
+                   "ssds_tpu_torch.tools.aug_map_parity"):
         assert needed in mods
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", CHECK.format(mods=mods)], env=env,
@@ -93,7 +94,8 @@ def _imports_in_functions(path, module):
 
 def test_only_the_image_read_hooks_import_cv2_and_only_cfg_loading_imports_yaml():
     """OpenCV only inside the VOC and COCO datasets' ``_read_image`` (JPEG
-    decoding) and the demo's ``_cv2`` (its image, video and camera modes);
+    decoding), the parity harness's ``_read_image`` (its ``--image``) and the
+    demo's ``_cv2`` (its image, video and camera modes);
     PyYAML only inside ``cfg_from_file`` / ``cfg_from_list``; the
     augmentation and the detector do not name OpenCV at all."""
     sources = sorted(glob.glob(os.path.join(REPO, "ssds_tpu_torch", "**", "*.py"), recursive=True))
@@ -105,7 +107,8 @@ def test_only_the_image_read_hooks_import_cv2_and_only_cfg_loading_imports_yaml(
         yaml_sites += [(rel, func) for func, _ in _imports_in_functions(path, "yaml")]
     assert sorted(cv2_sites) == [("ssds_tpu_torch/data/coco.py", "_read_image"),
                                  ("ssds_tpu_torch/data/voc.py", "_read_image"),
-                                 ("ssds_tpu_torch/demo.py", "_cv2")]
+                                 ("ssds_tpu_torch/demo.py", "_cv2"),
+                                 ("ssds_tpu_torch/tools/parity_check.py", "_read_image")]
     assert sorted(yaml_sites) == [("ssds_tpu_torch/config.py", "cfg_from_file"),
                                   ("ssds_tpu_torch/config.py", "cfg_from_list")]
     for rel in ("ssds_tpu_torch/data/augment.py", "ssds_tpu_torch/detector.py"):

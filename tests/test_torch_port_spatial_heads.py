@@ -31,7 +31,11 @@ each family's own float64 bounds against JAX (``FSSD_LIMITS``: FSSD's
 are used. (b) The first step at 1 x 2 and 1 x 4 against the port's
 one-process step within ``LIMITS`` (``tests/test_torch_port_spatial.py``),
 the ranks' states equal. (c) A control: YOLOv3 with zero rows where a band's
-neighbours' rows belong misses those bounds. (d) Each new layer alone, S
+neighbours' rows belong misses those bounds. (b') Two steps at 2 x 2 (two
+data groups of two bands) of FSSDLite and of YOLOv2 at 96 px across its
+warm-up's edge (``WARM_EDGE``) against the port's one-process steps within
+``LIMITS`` (JAX's 2-D meshes have their fault), and a control: the
+one-process YOLOv2 steps with one group's seen images miss them. (d) Each new layer alone, S
 ranks as threads on an in-process transport, at every geometry of
 FSSD-VGG16-300, FSSDLite-MobileNetV2-300, YOLOv3-DarkNet53-416 and
 YOLOv2-DarkNet19-416 and one shrinking resize: the forward rows equal the
@@ -42,6 +46,7 @@ image size on 2 and 4 bands, on the ``meta`` device. (f) The train CLI under
 ``test_model`` on its checkpoint.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -94,6 +99,16 @@ MODELS = {
 }
 JAX_LIMITS = {"fssd": FSSD_LIMITS, "fssd_lite": FSSD_LIMITS, "yolo_v3": YOLO_LIMITS,
               "yolo_v2": YOLO_LIMITS, "yolo_v2_96": YOLO_LIMITS}
+# 2 x 2 (two data groups of two bands): YOLOv2's warm-up, a pull of every
+# cell toward its anchor, lasts while fewer than 12,800 images are seen,
+# counted over the data groups (solver.py's ``step * batch * groups``). At
+# the global batch of 4 its two steps start one step short of that edge:
+# step 3199 has seen 12,796 images (warm), step 3200 12,800 (not); a count of
+# one group's images (6,398 / 6,400) would keep step 2 warm. The schedule is
+# multi_step (the LR halved once after the first epoch): the tests' "step"
+# schedule would take the LR to 0.5 ** 3199 = 0 by then.
+WARM_EDGE, EDGE_SCHEDULER = 12800 // 4 - 1, "multi_step"
+TWO_BY_TWO = ("fssd_lite", "yolo_v2_96")
 
 
 @pytest.fixture(scope="module")
@@ -115,6 +130,13 @@ def _run(pair, steps, **flags):
                 steps=steps, means=MEANS, compact=True, **flags)
 
 
+def _edge_run(pair, **flags):
+    """Two steps of :func:`_run` from ``WARM_EDGE`` under ``EDGE_SCHEDULER``."""
+    train_cfg = copy.deepcopy(_train_cfg(pair[4]))
+    train_cfg.LR_SCHEDULER.SCHEDULER = EDGE_SCHEDULER
+    return dict(_run(pair, 2, **flags), train_cfg=train_cfg, start=WARM_EDGE)
+
+
 @pytest.fixture(scope="module")
 def ranks(pairs, request):
     """Every port run, by layout: ``{layout: {run: (rank 0's steps, each
@@ -126,11 +148,14 @@ def ranks(pairs, request):
                     "zero_halo": _run(pairs["yolo_v3"], 1, spatial=2, zero_halo=True)}),
         "1x4": (4, {name: _run(pair, 1, spatial=4) for name, pair in pairs.items()
                     if name != "yolo_v2"}),  # yolo_v2_96's reorg covers the family
+        "2x2": (4, {"fssd_lite": _run(pairs["fssd_lite"], 2, spatial=2),
+                    "yolo_v2_96": _edge_run(pairs["yolo_v2_96"], spatial=2)}),
     }
     with tempfile.TemporaryDirectory() as tmp:
         started = {k: launch(tmp, k, runs, world) for k, (world, runs) in layouts.items()}
         request.getfixturevalue("jax_steps")
         request.getfixturevalue("one_process")
+        request.getfixturevalue("one_process_2x2")
         out = {}
         for k, st in started.items():
             per_rank = collect(*st)
@@ -146,6 +171,15 @@ def ranks(pairs, request):
 @pytest.fixture(scope="module")
 def one_process(pairs, one_torch_thread):  # noqa: F811
     return {name: port_steps(pair, "float64", steps=1) for name, pair in pairs.items()}
+
+
+@pytest.fixture(scope="module")
+def one_process_2x2(pairs, one_torch_thread):  # noqa: F811
+    """The one-process steps the 2 x 2 runs are held to: FSSDLite's first
+    two, YOLOv2's two at the warm-up's edge."""
+    return {"fssd_lite": port_steps(pairs["fssd_lite"], "float64", steps=2),
+            "yolo_v2_96": port_steps(pairs["yolo_v2_96"], "float64", steps=2, start=WARM_EDGE,
+                                     scheduler=EDGE_SCHEDULER)}
 
 
 def jax_mesh_steps(pair, mesh_shape, steps=2):
@@ -229,6 +263,38 @@ def test_1x4_step_equals_one_process(name, ranks, one_process):
     _report(f"{name} 1x4 against the port's one process:", rows)
     assert _within(rows, LIMITS), rows
     assert equal
+
+
+@pytest.mark.parametrize("name", TWO_BY_TWO)
+def test_2x2_steps_equal_one_process(name, ranks, one_process_2x2):
+    """Two steps on 2 x 2 (the batch split over two data groups, each
+    group's images over two bands; BatchNorm statistics and the MultiBox
+    normaliser over all four ranks) against the port's one process, within
+    ``LIMITS``: FSSDLite's fusion resizes, and YOLOv2's reorg across the
+    warm-up's edge, where the seen images must count both groups."""
+    got, transfers, equal = ranks["2x2"][name]
+    rows = errors(got, one_process_2x2[name])
+    _report(f"{name} 2x2 against the port's one process:", rows)
+    assert _within(rows, LIMITS), rows
+    assert equal
+    assert transfers[0]["halo_messages"] > 0
+
+
+def test_2x2_control_one_groups_seen_images_misses_the_bounds(pairs, one_process_2x2,
+                                                               monkeypatch):
+    """The edge is sharp: YOLOv2's one-process steps with the seen images of
+    one data group (half the global count) equal the true ones at the warm
+    step and miss ``LIMITS`` at the next, which they keep warm."""
+    from ssds_tpu_torch import solver
+
+    loss = solver.detection_loss
+    monkeypatch.setattr(solver, "detection_loss",
+                        lambda *a, seen_images, **k: loss(*a, seen_images=seen_images / 2, **k))
+    half = port_steps(pairs["yolo_v2_96"], "float64", steps=2, start=WARM_EDGE,
+                      scheduler=EDGE_SCHEDULER)
+    rows = errors(half, one_process_2x2["yolo_v2_96"])
+    _report("control: one group's seen images (YOLOv2):", rows)
+    assert _within(rows[:1], LIMITS) and not _within(rows[1:], LIMITS), rows
 
 
 def test_zero_halo_control_misses_the_bounds(ranks, one_process):

@@ -306,6 +306,11 @@ def _synchronize(device):
         torch.cuda.synchronize(device)
 
 
+# the lifecycle's timed train steps, after its warm-up steps (the steps were
+# 20 after 3: 10 after 2 keep chip_smoke.py inside its time)
+TIMED_WARMUP, TIMED_STEPS = 2, 10
+
+
 def lifecycle(cfg_path, out, device):
     import time
 
@@ -324,15 +329,15 @@ def lifecycle(cfg_path, out, device):
         test_map = solver.test_model()
         test_s = time.perf_counter() - t0
         host = next(iter(solver.get_loader("train")))
-        for i in range(23):
-            if i == 3:
+        for i in range(TIMED_WARMUP + TIMED_STEPS):
+            if i == TIMED_WARMUP:
                 _synchronize(solver.device)
                 spatial.reset_counters()
                 t0 = time.perf_counter()
             solver._train_step(solver._upload(host), solver.step)
         _synchronize(solver.device)
-        step_ms = (time.perf_counter() - t0) / 20 * 1e3
-        transfers = {k: v / 20 for k, v in spatial.counters.items()}  # a step's
+        step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        transfers = {k: v / TIMED_STEPS for k, v in spatial.counters.items()}  # a step's
         collectives = {}
         if sharding.world_size() > 1:  # what the step's collectives cost alone
             n_grads = sum(p.numel() for p in solver.model.parameters() if p.requires_grad)

@@ -9,6 +9,8 @@ from a seed, and carried into the port by ``ssds_tpu_torch.weights.port_name``
 with the head's kind and FEATURE_LAYER.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -285,8 +287,11 @@ def jax_steps(pair, dtype_name, frozen=False, data=None, steps=2, lr=1e-3):
     return out
 
 
-def port_steps(pair, dtype_name, frozen=False, data=None, steps=2, lr=1e-3):
-    """The port's train steps, as :func:`jax_steps` gives them."""
+def port_steps(pair, dtype_name, frozen=False, data=None, steps=2, lr=1e-3, start=0,
+               scheduler="step"):
+    """The port's train steps, as :func:`jax_steps` gives them; the first
+    has step index ``start`` (YOLOv2's seen images and the schedule count
+    from it) under the LR ``scheduler``."""
     _, tdtype = DTYPES[dtype_name]
     _, variables, _, jcfg, tcfg = pair
     image = int(tcfg.MODEL.IMAGE_SIZE[0])
@@ -299,7 +304,8 @@ def port_steps(pair, dtype_name, frozen=False, data=None, steps=2, lr=1e-3):
     priors = _priors(tcfg.MODEL)
     priors = None if priors is None else torch.from_numpy(priors)
     data = {k: torch.from_numpy(v) for k, v in (data or batch(image)).items()}
-    tc = _train_cfg(tcfg, lr)
+    tc = copy.deepcopy(_train_cfg(tcfg, lr))
+    tc.LR_SCHEDULER.SCHEDULER = scheduler
     tmodel.train()
     opt = configure_optimizer(tc, tmodel.named_parameters())
     step = build_train_step(tmodel, priors, opt, configure_lr_scheduler(tc, 1), tdtype, MEANS)
@@ -310,6 +316,6 @@ def port_steps(pair, dtype_name, frozen=False, data=None, steps=2, lr=1e-3):
 
     out = [(None, None, snapshot())]
     for i in range(steps):
-        m = step(data, i)
+        m = step(data, start + i)
         out.append((float(m["loss_l"]), float(m["loss_c"]), snapshot()))
     return out

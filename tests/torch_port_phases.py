@@ -10,7 +10,9 @@ RFB), 12 (``check_yolo``, YOLOv3 and YOLOv2), 13 (``check_zoo``,
 SSD300-ResNet50, SSD512-VGG16 and the serving export), 16 (``check_ddp``,
 data-parallel SSDLite-MobileNetV2-300), 17 (``check_observability``), 18
 (``check_spatial``, SSD300-VGG16 on the spatial axis) and 19
-(``check_spatial_heads``, FSSD and YOLO on it). Each process runs from a
+(``check_spatial_heads``, FSSD and YOLO on it) and 20 (``check_parity``, the
+mAP-parity harness on phase 8's checkpoint, which it runs first when 8 is
+not asked for). Each process runs from a
 checkout's root with that checkout's ``chip_smoke.py`` and port, builds the
 kernels and turns TF32 off as ``chip_smoke.main`` does, runs the phases in
 the order given and writes their numbers to ``DIR/{pair}-{tree}.json``
@@ -23,15 +25,17 @@ checkout. Needs a CUDA device; imports no JAX; not a test.
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
 PHASES = {"8": ("training", "check_training"), "11": ("heads", "check_heads"),
           "12": ("yolo", "check_yolo"), "13": ("zoo", "check_zoo"), "16": ("ddp", "check_ddp"),
           "17": ("observability", "check_observability"), "18": ("spatial", "check_spatial"),
-          "19": ("spatial_heads", "check_spatial_heads")}
+          "19": ("spatial_heads", "check_spatial_heads"), "20": ("parity", "check_parity")}
 TIMES = ("train_step_ms", "eval_img_s", "predict_b1_p50_ms", "predict_b1_p90_ms",
          "predict_batch32_img_s")
 
@@ -52,9 +56,24 @@ def one(phases, out):
     torch.cuda.set_device(dev)
     _build.load()
     report = {"card": card}
-    for p in phases:
-        key, fn = PHASES[p]
-        report[key] = getattr(chip_smoke, fn)(0, dev, card, chip_smoke.log)
+    keep = tempfile.mkdtemp(prefix="phases_")  # phase 8's checkpoint, for phase 20
+    try:
+        for p in phases:
+            key, fn = PHASES[p]
+            if p == "20" and "training" not in report:  # it works on phase 8's checkpoint
+                report["training"] = chip_smoke.check_training(0, dev, card, chip_smoke.log,
+                                                               keep_dir=keep)
+            if p == "8":
+                report[key] = chip_smoke.check_training(0, dev, card, chip_smoke.log,
+                                                        keep_dir=keep)
+            elif p == "20":
+                report[key] = chip_smoke.check_parity(0, dev, card, chip_smoke.log,
+                                                      report["training"]["checkpoint"],
+                                                      report["training"]["test_map"])
+            else:
+                report[key] = getattr(chip_smoke, fn)(0, dev, card, chip_smoke.log)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     with open(out, "w") as f:
         json.dump(report, f, indent=1, default=str)
 
@@ -67,7 +86,8 @@ def times(report):
             continue
         models = {key: r} if "train_step_ms" in r else r
         for name, m in models.items():
-            out.update({f"{key}/{name}/{t}": m[t] for t in TIMES if t in m})
+            if isinstance(m, dict):
+                out.update({f"{key}/{name}/{t}": m[t] for t in TIMES if t in m})
     return out
 
 
