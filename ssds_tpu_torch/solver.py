@@ -67,6 +67,14 @@ RFB, YOLOv2/v3). After a resume the port
 continues the LR schedule from the restored step, as
 ``ssds_tpu/solver.py:366-367`` intends; the JAX optimizer restarts its
 schedule count at 0 (ROADMAP.md §3).
+
+Observability: the epoch loop and the train step open the named spans that
+:mod:`ssds_tpu_torch.utils.profiler` lists, which cost nothing unless a
+profiler runs; a trace counts the steps and the blocking loss reads by
+their spans. ``Solver.setup_s`` holds one-off host seconds: ``model``
+(building the model and moving it to the device) and ``first_step`` (the
+first loop iteration of ``train_epoch``, the lazy library loads and kernel
+selection included: it ends in a loss read).
 """
 
 from __future__ import annotations
@@ -92,6 +100,7 @@ from ssds_tpu_torch.ops.postprocess import PostProcessConfig, detect, detect_dec
 from ssds_tpu_torch.ops.yolo import yolo_loss, yolo_v2_loss
 from ssds_tpu_torch.models.layers import recomputing
 from ssds_tpu_torch.parallel import sharding, spatial
+from ssds_tpu_torch.utils.profiler import annotate
 from ssds_tpu_torch.utils.visualize import viz_feature_maps, viz_grads, viz_prior_box, viz_samples
 
 # --------------------------------------------------------------------------
@@ -464,19 +473,23 @@ def build_train_step(model, priors, optimizer, lr_schedule, dtype, pixel_means,
             spatial.check_height(x.shape[1], width)
             a, b = plan.rows(x.shape[1])
             x = x[:, a:b]
-        out = forward(x)
-        loss_l, loss_c = detection_loss(model, priors, out, batch,
-                                        seen_images=step * batch["images"].shape[0] * groups,
-                                        data_parallel=world > 1, spatial=width)
-        loss = loss_l + loss_c
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if plan is not None:
-            spatial.reduce_gradients([p for _, p in named], groups)
-        if debug_nans:
-            check_finite(step, [("loss_l", loss_l), ("loss_c", loss_c)]
-                         + [(f"the gradient of {n}", p.grad) for n, p in named])
-        apply_gradients(optimizer, lr_schedule(step), clip)
+        with annotate("step.forward"):
+            out = forward(x)
+        with annotate("step.loss"):
+            loss_l, loss_c = detection_loss(model, priors, out, batch,
+                                            seen_images=step * batch["images"].shape[0] * groups,
+                                            data_parallel=world > 1, spatial=width)
+            loss = loss_l + loss_c
+        with annotate("step.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            if plan is not None:
+                spatial.reduce_gradients([p for _, p in named], groups)
+            if debug_nans:
+                check_finite(step, [("loss_l", loss_l), ("loss_c", loss_c)]
+                             + [(f"the gradient of {n}", p.grad) for n, p in named])
+        with annotate("step.optimizer"):
+            apply_gradients(optimizer, lr_schedule(step), clip)
         return {"loss": loss.detach(), "loss_l": loss_l.detach(), "loss_c": loss_c.detach()}
 
     return train_step
@@ -514,8 +527,10 @@ class Solver:
         self.world = sharding.world_size()
         self.rank = sharding.rank()
         self.device = sharding.rank_device(device)
+        t0 = time.perf_counter()
         model, self.feature_maps = create_model(cfg.MODEL)
         self.model = init_model(model, seed=seed, device=self.device)
+        self.setup_s = {"model": time.perf_counter() - t0}  # one-off host seconds
         self.img_hw = (int(cfg.MODEL.IMAGE_SIZE[0]), int(cfg.MODEL.IMAGE_SIZE[1]))
         self.is_yolo = is_yolo(cfg.MODEL)
         self.priors = None if self.is_yolo else torch.from_numpy(
@@ -717,7 +732,8 @@ class Solver:
     def _host_losses(self, metrics) -> Dict[str, float]:
         """Device loss scalars on the host: their means over the ranks."""
         keys = list(metrics)
-        return dict(zip(keys, sharding.all_reduce_mean([metrics[k] for k in keys])))
+        with annotate("solver.host_read"):
+            return dict(zip(keys, sharding.all_reduce_mean([metrics[k] for k in keys])))
 
     def train_epoch(self, loader, writer=None):
         """One pass over ``loader``; returns the epoch means of every step's
@@ -727,23 +743,30 @@ class Solver:
         n = 0
         total = len(loader)
         t0 = time.time()
-        for batch in loader:
-            metrics = self._train_step(self._upload(batch), self.step)
-            self.step += 1
-            acc = metrics if acc is None else {k: acc[k] + v for k, v in metrics.items()}
-            n += 1
-            if n % 10 == 0 or n == 1:
-                m = self._host_losses(metrics)
-                if writer is not None:
-                    writer.add_scalar("iter_loss_loc", m["loss_l"], self.step)
-                    writer.add_scalar("iter_loss_conf", m["loss_c"], self.step)
-                if n > 1:
-                    eta = (time.time() - t0) / n * (total - n)
-                    print(f"  iter {n}/{total} loss_l={m['loss_l']:.4f} "
-                          f"loss_c={m['loss_c']:.4f} eta={eta:.0f}s", flush=True)
-        if acc is None:
-            return {"loss": 0.0, "loss_l": 0.0, "loss_c": 0.0}
-        return {k: v / n for k, v in self._host_losses(acc).items()}
+        with annotate("solver.epoch"):
+            for batch in loader:
+                with annotate("solver.step"):
+                    first = time.perf_counter() if "first_step" not in self.setup_s else None
+                    with annotate("solver.upload"):
+                        dev = self._upload(batch)
+                    metrics = self._train_step(dev, self.step)
+                    self.step += 1
+                    acc = metrics if acc is None else {k: acc[k] + v for k, v in metrics.items()}
+                    n += 1
+                    if n % 10 == 0 or n == 1:
+                        m = self._host_losses(metrics)
+                        if writer is not None:
+                            writer.add_scalar("iter_loss_loc", m["loss_l"], self.step)
+                            writer.add_scalar("iter_loss_conf", m["loss_c"], self.step)
+                        if n > 1:
+                            eta = (time.time() - t0) / n * (total - n)
+                            print(f"  iter {n}/{total} loss_l={m['loss_l']:.4f} "
+                                  f"loss_c={m['loss_c']:.4f} eta={eta:.0f}s", flush=True)
+                    if first is not None:  # this iteration ended in its loss read (n == 1)
+                        self.setup_s["first_step"] = time.perf_counter() - first
+            if acc is None:
+                return {"loss": 0.0, "loss_l": 0.0, "loss_c": 0.0}
+            return {k: v / n for k, v in self._host_losses(acc).items()}
 
     def eval_epoch(self, epoch, writer=None):
         """Loss and mAP over the eval set, from one forward per batch."""

@@ -2,9 +2,22 @@
 
 :func:`trace` records a ``torch.profiler`` trace of the enclosed block, host
 and card, into a Chrome trace file (``chrome://tracing``, Perfetto, or
-TensorBoard's profile plugin); :func:`annotate` names a span in it;
-:func:`timed` adds a block's wall time to a dict after waiting for the work
-it queued on the card, as the JAX package's waits on ``jax.effects_barrier``.
+TensorBoard's profile plugin); :func:`annotate` names a span in it, on the
+same clock as the card's kernels, and costs a flag read when no profiler
+runs; :func:`timed` adds a block's wall time to a dict after waiting for the
+work it queued on the card, as the JAX package's waits on
+``jax.effects_barrier``.
+
+The training loop's spans (``Solver.train_epoch`` and the train step of
+``build_train_step``) are these; a step's other spans are the ones its
+``solver.step`` span holds:
+
+- ``solver.epoch``: the whole of ``train_epoch``, the loader included;
+- ``solver.step``: one iteration of its loop;
+- ``solver.upload``: the batch to the device;
+- ``solver.host_read``: a blocking read of the losses on the host;
+- ``step.forward``, ``step.loss``, ``step.backward`` (the gradients'
+  zeroing and reduction included), ``step.optimizer``.
 """
 
 from __future__ import annotations
@@ -59,6 +72,13 @@ def timed(name: str, results: dict):
         results[name] = results.get(name, 0.0) + time.perf_counter() - t0
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named span in the trace (``torch.profiler.record_function``)."""
-    return torch.profiler.record_function(name)
+    """A named span in the trace (``torch.profiler.record_function``) while
+    a profiler runs; otherwise one shared no-op context (an ungated
+    ``record_function`` costs some microseconds even with no profiler)."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
